@@ -1,0 +1,147 @@
+// The ADMM elementwise chain, shared by the fused step (fused_admm.cu) and the
+// whole solve (vmem_solver.cu).
+//
+// Per pixel of a plane, given the fresh primal x and the duals u:
+//   a  = D x + u                       (backward differences, circular)
+//   z  = shrink(a, tau)                (aniso clip form | 'sample' | 'joint')
+//   u' = a - z
+//   s' = hty + rho * (Dx^T(z_x - u'_x) + Dy^T(z_y - u'_y))
+// The same chain as torch_admm_deconv_tpu/kernels/fused_admm.py::_make_kernel.
+//
+// The adjoint differences make s' at (i, j) need t = z - u' at (i, j+1) and
+// (i+1, j), and each of those needs x at its own left and upper neighbours
+// (and, for 'sample', the channel norm at that neighbour). One thread per
+// pixel recomputes the two neighbours' shrinkage instead of staging a tile
+// with a halo in shared memory: the chain is bound by memory bytes, the
+// recomputed reads hit L1/L2, and the plane wraps circularly for free.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace admm {
+
+constexpr float kEps = 1e-15f;
+
+enum Mode : int { kAniso = 0, kSample = 1, kJoint = 2 };
+
+// a = D x + u at (i, j) of one plane
+__device__ __forceinline__ void grad_plus_dual(const float* __restrict__ x,
+                                               const float* __restrict__ ux,
+                                               const float* __restrict__ uy,
+                                               int i, int j, int h, int w,
+                                               float& ax, float& ay) {
+  const int jl = j == 0 ? w - 1 : j - 1;
+  const int iu = i == 0 ? h - 1 : i - 1;
+  const long at = (long)i * w + j;
+  const float xc = x[at];
+  ax = (xc - x[(long)i * w + jl]) + ux[at];
+  ay = (xc - x[(long)iu * w + j]) + uy[at];
+}
+
+// t = z - u' and u' = a - z at (i, j) of plane `plane`; `group` is the first
+// plane of the g planes whose norm couples in 'sample' mode.
+template <int MODE>
+__device__ __forceinline__ void chain_at(const float* __restrict__ x,
+                                         const float* __restrict__ ux,
+                                         const float* __restrict__ uy,
+                                         long plane, long group, int g, int i,
+                                         int j, int h, int w, float tau,
+                                         float& tx, float& ty, float& uxn,
+                                         float& uyn) {
+  float ax, ay;
+  grad_plus_dual(x + plane, ux + plane, uy + plane, i, j, h, w, ax, ay);
+  float zx, zy;
+  if (MODE == kAniso) {
+    // clip form of soft shrinkage: a - clip(a, -tau, tau), tau >= 0
+    zx = ax - fminf(fmaxf(ax, -tau), tau);
+    zy = ay - fminf(fmaxf(ay, -tau), tau);
+  } else if (MODE == kJoint) {
+    const float mag = sqrtf(ax * ax + ay * ay + kEps);
+    const float scale = fmaxf(1.0f - tau / mag, 0.0f);
+    zx = scale * ax;
+    zy = scale * ay;
+  } else {
+    const long hw = (long)h * w;
+    float sx = 0.0f, sy = 0.0f;
+    for (int k = 0; k < g; ++k) {
+      const long pk = group + k * hw;
+      float bx, by;
+      grad_plus_dual(x + pk, ux + pk, uy + pk, i, j, h, w, bx, by);
+      sx += bx * bx;
+      sy += by * by;
+    }
+    const float nx = sqrtf(sx + kEps);
+    const float ny = sqrtf(sy + kEps);
+    zx = fmaxf(1.0f - tau / (nx + kEps), 0.0f) * ax;
+    zy = fmaxf(1.0f - tau / (ny + kEps), 0.0f) * ay;
+  }
+  uxn = ax - zx;
+  uyn = ay - zy;
+  tx = zx - uxn;
+  ty = zy - uyn;
+}
+
+// One pass of the chain over n_planes planes of h x w, in groups of g.
+// rho_tau = {rho, tau} lives on the device, so no host sync is needed.
+// Inputs and outputs must not alias: neighbours read u before it is written.
+template <int MODE>
+__global__ void __launch_bounds__(256)
+chain_kernel(const float* __restrict__ x, const float* __restrict__ ux,
+             const float* __restrict__ uy, const float* __restrict__ hty,
+             const float* __restrict__ rho_tau, float* __restrict__ s,
+             float* __restrict__ uxo, float* __restrict__ uyo, int n_planes,
+             int g, int h, int w) {
+  const long hw = (long)h * w;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= hw) return;
+  const float rho = rho_tau[0];
+  const float tau = rho_tau[1];
+  const int i = (int)(idx / w);
+  const int j = (int)(idx % w);
+  const int jr = j == w - 1 ? 0 : j + 1;
+  const int id = i == h - 1 ? 0 : i + 1;
+  for (int p = blockIdx.y; p < n_planes; p += gridDim.y) {
+    const long plane = (long)p * hw;
+    const long group = (long)(p / g) * g * hw;
+    float tx, ty, uxn, uyn, txr, tyd, unused0, unused1, unused2;
+    chain_at<MODE>(x, ux, uy, plane, group, g, i, j, h, w, tau, tx, ty, uxn, uyn);
+    chain_at<MODE>(x, ux, uy, plane, group, g, i, jr, h, w, tau, txr, unused0,
+                   unused1, unused2);
+    chain_at<MODE>(x, ux, uy, plane, group, g, id, j, h, w, tau, unused0, tyd,
+                   unused1, unused2);
+    s[plane + idx] = hty[plane + idx] + rho * (tx - txr + ty - tyd);
+    uxo[plane + idx] = uxn;
+    uyo[plane + idx] = uyn;
+  }
+}
+
+// Launch the chain for `mode` on `stream`; returns the launch status.
+inline cudaError_t launch_chain(int mode, const float* x, const float* ux,
+                                const float* uy, const float* hty,
+                                const float* rho_tau, float* s, float* uxo,
+                                float* uyo, int n_planes, int g, int h, int w,
+                                cudaStream_t stream) {
+  const long hw = (long)h * w;
+  const dim3 block(256);
+  const dim3 grid((unsigned)((hw + 255) / 256),
+                  (unsigned)(n_planes < 65535 ? n_planes : 65535));
+  switch (mode) {
+    case kAniso:
+      chain_kernel<kAniso><<<grid, block, 0, stream>>>(x, ux, uy, hty, rho_tau, s, uxo,
+                                                       uyo, n_planes, g, h, w);
+      break;
+    case kSample:
+      chain_kernel<kSample><<<grid, block, 0, stream>>>(x, ux, uy, hty, rho_tau, s, uxo,
+                                                        uyo, n_planes, g, h, w);
+      break;
+    case kJoint:
+      chain_kernel<kJoint><<<grid, block, 0, stream>>>(x, ux, uy, hty, rho_tau, s, uxo,
+                                                       uyo, n_planes, g, h, w);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace admm
