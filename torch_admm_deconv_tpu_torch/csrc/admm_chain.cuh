@@ -1,5 +1,5 @@
 // The ADMM elementwise chain, shared by the fused step (fused_admm.cu) and the
-// whole solve (vmem_solver.cu).
+// whole solves (vmem_solver.cu, vmem_adaptive.cu).
 //
 // Per pixel of a plane, given the fresh primal x and the duals u:
 //   a  = D x + u                       (backward differences, circular)
@@ -24,33 +24,35 @@ constexpr float kEps = 1e-15f;
 
 enum Mode : int { kAniso = 0, kSample = 1, kJoint = 2 };
 
-// a = D x + u at (i, j) of one plane
+// d = D x and a = d + u at (i, j) of one plane
 __device__ __forceinline__ void grad_plus_dual(const float* __restrict__ x,
                                                const float* __restrict__ ux,
                                                const float* __restrict__ uy,
                                                int i, int j, int h, int w,
+                                               float& dx, float& dy,
                                                float& ax, float& ay) {
   const int jl = j == 0 ? w - 1 : j - 1;
   const int iu = i == 0 ? h - 1 : i - 1;
   const long at = (long)i * w + j;
   const float xc = x[at];
-  ax = (xc - x[(long)i * w + jl]) + ux[at];
-  ay = (xc - x[(long)iu * w + j]) + uy[at];
+  dx = xc - x[(long)i * w + jl];
+  dy = xc - x[(long)iu * w + j];
+  ax = dx + ux[at];
+  ay = dy + uy[at];
 }
 
-// t = z - u' and u' = a - z at (i, j) of plane `plane`; `group` is the first
-// plane of the g planes whose norm couples in 'sample' mode.
+// z = shrink(D x + u, tau) at (i, j) of plane `plane`, with d = D x and
+// a = D x + u; `group` is the first plane of the g planes whose norm
+// couples in 'sample' mode.
 template <int MODE>
-__device__ __forceinline__ void chain_at(const float* __restrict__ x,
-                                         const float* __restrict__ ux,
-                                         const float* __restrict__ uy,
-                                         long plane, long group, int g, int i,
-                                         int j, int h, int w, float tau,
-                                         float& tx, float& ty, float& uxn,
-                                         float& uyn) {
-  float ax, ay;
-  grad_plus_dual(x + plane, ux + plane, uy + plane, i, j, h, w, ax, ay);
-  float zx, zy;
+__device__ __forceinline__ void shrink_at(const float* __restrict__ x,
+                                          const float* __restrict__ ux,
+                                          const float* __restrict__ uy,
+                                          long plane, long group, int g, int i,
+                                          int j, int h, int w, float tau,
+                                          float& dx, float& dy, float& ax,
+                                          float& ay, float& zx, float& zy) {
+  grad_plus_dual(x + plane, ux + plane, uy + plane, i, j, h, w, dx, dy, ax, ay);
   if (MODE == kAniso) {
     // clip form of soft shrinkage: a - clip(a, -tau, tau), tau >= 0
     zx = ax - fminf(fmaxf(ax, -tau), tau);
@@ -65,8 +67,8 @@ __device__ __forceinline__ void chain_at(const float* __restrict__ x,
     float sx = 0.0f, sy = 0.0f;
     for (int k = 0; k < g; ++k) {
       const long pk = group + k * hw;
-      float bx, by;
-      grad_plus_dual(x + pk, ux + pk, uy + pk, i, j, h, w, bx, by);
+      float ex, ey, bx, by;
+      grad_plus_dual(x + pk, ux + pk, uy + pk, i, j, h, w, ex, ey, bx, by);
       sx += bx * bx;
       sy += by * by;
     }
@@ -75,6 +77,19 @@ __device__ __forceinline__ void chain_at(const float* __restrict__ x,
     zx = fmaxf(1.0f - tau / (nx + kEps), 0.0f) * ax;
     zy = fmaxf(1.0f - tau / (ny + kEps), 0.0f) * ay;
   }
+}
+
+// t = z - u' and u' = a - z at (i, j) of plane `plane`.
+template <int MODE>
+__device__ __forceinline__ void chain_at(const float* __restrict__ x,
+                                         const float* __restrict__ ux,
+                                         const float* __restrict__ uy,
+                                         long plane, long group, int g, int i,
+                                         int j, int h, int w, float tau,
+                                         float& tx, float& ty, float& uxn,
+                                         float& uyn) {
+  float dx, dy, ax, ay, zx, zy;
+  shrink_at<MODE>(x, ux, uy, plane, group, g, i, j, h, w, tau, dx, dy, ax, ay, zx, zy);
   uxn = ax - zx;
   uyn = ay - zy;
   tx = zx - uxn;

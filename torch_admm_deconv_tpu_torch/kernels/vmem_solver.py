@@ -1,26 +1,39 @@
-"""K2: the whole fixed-iteration TV-ADMM solve (CUDA, ``csrc/vmem_solver.cu``).
+"""The whole-solve TV-ADMM kernels: K2 and K4 (fixed iteration count,
+``csrc/vmem_solver.cu``) and K3 (residual-stopped, ``csrc/vmem_adaptive.cu``).
 
-Counterpart of torch_admm_deconv_tpu/kernels/vmem_solver.py
-(``admm_tv_vmem`` :918-1061, kernel ``_make_kernel`` :213-428):
+Counterpart of torch_admm_deconv_tpu/kernels/vmem_solver.py.
+
+K2, ``admm_tv_vmem`` with ``schedule='batched'`` (JAX :918-1061, kernel
+``_make_kernel`` :213-428)::
 
     s <- H^T y, u <- 0
     repeat maxit:  x = T((T s) * freq / (H W));  the K1 chain -> s, u
     return x       (zeros when maxit == 0)
 
+K4, ``schedule='interleaved'`` (kernel ``_make_interleaved_kernel``
+:134-210): the same math per plane with the transform's left stage first,
+each packed group of planes on its own stream; aniso and 'joint' only
+('sample' runs K2, as in JAX).
+
+K3, ``admm_tv_adaptive_vmem`` (:724-915, kernel ``_make_adaptive_kernel``
+:505-683): residual stopping, adaptive rho and the mixed-precision phase
+per block (a plane, or a sample's C planes in 'sample' mode), optionally
+returning the exit state for implicit differentiation.
+
 T is the separable cas transform (no PSF or an axis-symmetric one) or the
 2-D Hartley pair (any other real PSF), chosen by ``psf_is_axis_symmetric``.
-One C call runs the whole solve on the caller's stream. 'high' precision is
+Each solve is one C call on the caller's stream. 'high' precision is
 float32 throughout; 'mixed' rounds every stage operand and matrix to bf16
-for the first ``fast_frac * maxit`` iterations. A CUDA tensor launches the
-kernel; a CPU tensor runs :func:`admm_tv_vmem_plain`. Forward-only, as the
-TPU kernel is.
+in the fast phase. A CUDA tensor launches the kernel; a CPU tensor runs the
+plain version beside it. Forward-only, as the TPU kernels are.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from torch_admm_deconv_tpu_torch._device import resolve_device
@@ -33,20 +46,43 @@ from torch_admm_deconv_tpu_torch.ops.hartley import (
     mirror_freq_full_joint,
     psf_is_axis_symmetric,
 )
-from torch_admm_deconv_tpu_torch.ops.solver import _elementwise_step, _htran
+from torch_admm_deconv_tpu_torch.ops.prox import _EPS
+from torch_admm_deconv_tpu_torch.ops.solver import AdaptiveResult, _elementwise_step, _htran
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()  # K2
+INTERLEAVED_LAUNCHES = LaunchCounter()  # K4
+ADAPTIVE_LAUNCHES = LaunchCounter()  # K3
+
+SCHEDULES = ("batched", "interleaved")
+# K3 launches iterations in chunks of this many and reads the count of
+# running blocks one chunk late
+POLL = 8
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
-def _lib():
-    fn = LIBRARIES.load("vmem_solver").admm_tv_vmem_solve
+def _fixed_lib(name: str):
+    fn = getattr(LIBRARIES.load("vmem_solver"), name)
     if fn.argtypes is None:
         fn.argtypes = [_VP] * 6 + [_I] + [_VP] * 10 + [_I] * 7 + [_VP]
         fn.restype = _I
     return fn
+
+
+def _adaptive_lib():
+    lib = LIBRARIES.load("vmem_adaptive")
+    fn = lib.admm_tv_adaptive_solve
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [_VP] * 7 + [_I] + [_VP] * 12 + [_I] * 6
+            + [_F, _I, _F, _F, _I, _F, _I, _F, _I, _VP]
+        )
+        fn.restype = _I
+        lib.admm_tv_adaptive_workspace.argtypes = [_I] * 3
+        lib.admm_tv_adaptive_workspace.restype = ctypes.c_long
+    return lib
 
 
 def vmem_solve_available(shape, dtype, kern, iso: bool, iso_mode: str) -> bool:
@@ -54,7 +90,8 @@ def vmem_solve_available(shape, dtype, kern, iso: bool, iso_mode: str) -> bool:
     vmem_solver.py:479-502): float32 NCHW, per-block shrinkage (aniso,
     'joint' or 'sample'; the batch-coupled 'compat' is not), and a PSF that
     is not being learned: one with ``requires_grad`` under grad mode takes
-    the differentiable loop, as a traced kernel does in JAX. Any H and W."""
+    the differentiable loop, as a traced kernel does in JAX. Any H and W:
+    the TPU's tile and VMEM gates do not apply."""
     if dtype != torch.float32 or len(shape) != 4:
         return False
     if iso and iso_mode not in ("joint", "sample"):
@@ -64,36 +101,70 @@ def vmem_solve_available(shape, dtype, kern, iso: bool, iso_mode: str) -> bool:
     return True
 
 
+def adaptive_vmem_available(shape, dtype, kern, iso: bool, iso_mode: str,
+                            return_state: bool = False) -> bool:
+    """Eligibility for :func:`admm_tv_adaptive_vmem` (JAX :686-699): the
+    whole-solve gates. The TPU kernel's extra VMEM planes (z history, exit
+    state) live in device memory here, so ``return_state`` changes
+    nothing."""
+    return vmem_solve_available(shape, dtype, kern, iso, iso_mode)
+
+
 def _bf16(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.bfloat16).to(torch.float32)
 
 
 def _transform(v: torch.Tensor, mats: Sequence[torch.Tensor], fast: bool) -> torch.Tensor:
-    """T(v) with the kernel's stage order (JAX vmem_solver.py:287-354)."""
+    """T(v) with K2's stage order (JAX vmem_solver.py:287-354): the cas
+    transform's right stage first; the Hartley pair's left stages first, as
+    in :func:`_xform`."""
+    if len(mats) == 4:
+        return _xform(v, mats, fast)
+    r = _bf16 if fast else (lambda m: m)
+    th, tw = (r(m) for m in mats)
+    return th @ r(r(v) @ tw)
+
+
+def _xform(v: torch.Tensor, mats: Sequence[torch.Tensor], fast: bool) -> torch.Tensor:
+    """T(v) with K3's and K4's stage order, left stage first (JAX
+    ``_make_xform``, vmem_solver.py:78-131)."""
     r = _bf16 if fast else (lambda m: m)
     if len(mats) == 2:
         th, tw = (r(m) for m in mats)
-        return th @ r(r(v) @ tw)
+        return r(th @ r(v)) @ tw
     th, thp, cw, sw = (r(m) for m in mats)
     vb = r(v)
     return r(th @ vb) @ cw + r(thp @ vb) @ sw
 
 
-def admm_tv_vmem_plain(hty, freq_full, mats, rho, tau, mode, maxit: int, fast_iters: int):
-    """K2's plain version: the same transforms with ``torch.matmul`` in
-    float32 (bf16-rounded operands in the fast phase) and the K1 chain."""
+def _fixed_plain(transform, hty, freq_full, mats, rho, tau, mode, maxit: int, fast_iters: int):
     s = hty
     u_x = u_y = x = torch.zeros_like(hty)
     for it in range(maxit):
         fast = it < fast_iters
-        x = _transform(_transform(s, mats, fast) * freq_full, mats, fast)
+        x = transform(transform(s, mats, fast) * freq_full, mats, fast)
         s, _, _, u_x, u_y = _elementwise_step(
             x, u_x, u_y, hty, rho, tau, mode is not None, mode or "joint"
         )
     return x
 
 
-def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters):
+def admm_tv_vmem_plain(hty, freq_full, mats, rho, tau, mode, maxit: int, fast_iters: int):
+    """K2's plain version: the same transforms with ``torch.matmul`` in
+    float32 (bf16-rounded operands in the fast phase) and the K1 chain."""
+    return _fixed_plain(_transform, hty, freq_full, mats, rho, tau, mode, maxit, fast_iters)
+
+
+def admm_tv_vmem_interleaved_plain(hty, freq_full, mats, rho, tau, mode, maxit: int,
+                                   fast_iters: int):
+    """K4's plain version: K2's with the left-stage-first transform. The
+    planes are independent in K4's modes, so the per-plane order of the TPU
+    schedule needs no loop over planes."""
+    return _fixed_plain(_xform, hty, freq_full, mats, rho, tau, mode, maxit, fast_iters)
+
+
+def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack):
+    """K2 (``pack`` None) or K4 (planes in groups of ``pack``)."""
     check_planes("admm_tv_vmem", hty)
     b, c, h, w = hty.shape
     if freq_full.shape != (h, w) or any(m.dtype != torch.float32 for m in mats):
@@ -103,29 +174,36 @@ def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters):
     d = torch.empty_like(hty) if general else None
     m = list(mats) + [None] * (4 - len(mats))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    if pack is None:
+        name, group, counter = "admm_tv_vmem_solve", (c if mode == "sample" else 1), LAUNCHES
+    else:
+        name, group, counter = "admm_tv_vmem_interleaved", pack, INTERLEAVED_LAUNCHES
     with torch.cuda.device(hty.device):
         stream = torch.cuda.current_stream(hty.device).cuda_stream
-        status = _lib()(
+        status = _fixed_lib(name)(
             hty.data_ptr(), freq_full.data_ptr(), *(ptr(t) for t in m), len(mats),
             rho_tau.data_ptr(), out.data_ptr(), s.data_ptr(), ux0.data_ptr(), ux1.data_ptr(),
             uy0.data_ptr(), uy1.data_ptr(), y.data_ptr(), a.data_ptr(), ptr(d),
-            b * c, c if mode == "sample" else 1, h, w, MODES[mode], maxit, fast_iters, stream,
+            b * c, group, h, w, MODES[mode], maxit, fast_iters, stream,
         )
-    check(status, "admm_tv_vmem_solve")
-    LAUNCHES.add()
+    check(status, name)
+    counter.add()
     return out
 
 
 class _WholeSolve(torch.autograd.Function):
+    """K2 (``pack`` None) or K4 (groups of ``pack`` planes)."""
+
     @staticmethod
-    def forward(ctx, hty, freq_full, rho, tau, mode, maxit, fast_iters, *mats):
+    def forward(ctx, hty, freq_full, rho, tau, mode, maxit, fast_iters, pack, *mats):
         if hty.is_cuda:
             rho_tau = torch.stack([rho, tau]).to(torch.float32).contiguous()
             return _launch(
                 hty.contiguous(), freq_full.contiguous(), [m.contiguous() for m in mats],
-                rho_tau, mode, maxit, fast_iters,
+                rho_tau, mode, maxit, fast_iters, pack,
             )
-        return admm_tv_vmem_plain(hty, freq_full, mats, rho, tau, mode, maxit, fast_iters)
+        plain = admm_tv_vmem_plain if pack is None else admm_tv_vmem_interleaved_plain
+        return plain(hty, freq_full, mats, rho, tau, mode, maxit, fast_iters)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -141,6 +219,21 @@ def fast_iterations(precision: str, fast_frac: float, maxit: int) -> int:
     raise ValueError(f"precision must be 'mixed' or 'high', got {precision!r}")
 
 
+def _fixed_pack(shape, iso: bool, iso_mode: str, cap: int = 8) -> int:
+    """Planes per group of the fixed-iteration solve (JAX :454-476): a
+    sample's channels in 'sample' mode, else the largest divisor of B*C up
+    to ``cap`` (the TPU's VMEM budget does not apply)."""
+    b, c = shape[0], shape[1]
+    if iso and iso_mode == "sample":
+        return c
+    total = b * c
+    return max(g for g in range(1, min(cap, total) + 1) if total % g == 0)
+
+
+def _transform_mats(h: int, w: int, kern, device):
+    return cas_mats(h, w, device) if psf_is_axis_symmetric(kern) else cas_pair_mats(h, w, device)
+
+
 def solve_inputs(xin: torch.Tensor, lmbd, rho, kern: Optional[torch.Tensor]):
     """(hty, freq_full, rho, tau, mats): everything the solve reads, built
     outside the kernel as the JAX wrapper builds it (vmem_solver.py:984-1005)."""
@@ -153,10 +246,7 @@ def solve_inputs(xin: torch.Tensor, lmbd, rho, kern: Optional[torch.Tensor]):
     # the inverse transform's 1/(H*W) is folded into the diagonal spectrum
     freq_c = fdops.freq_denominator((h, w), rho, kern, dtype, xin.device) * (1.0 / (h * w))
     freq_full = mirror_freq_full_joint(freq_c.expand(h, w // 2 + 1), w)
-    if psf_is_axis_symmetric(kern):
-        mats = cas_mats(h, w, xin.device)
-    else:
-        mats = cas_pair_mats(h, w, xin.device)
+    mats = _transform_mats(h, w, kern, xin.device)
     hty = _htran(xin, kern, (h, w), dtype)
     return hty, freq_full, rho, tau, mats
 
@@ -172,13 +262,16 @@ def admm_tv_vmem(
     iso_mode: str = "joint",
     precision: str = "high",
     fast_frac: float = 0.75,
+    schedule: str = "batched",
     device=None,
 ) -> torch.Tensor:
     """Whole-solve TV-ADMM; the same contract as ``ops.solver.admm_tv`` for
     the configurations :func:`vmem_solve_available` accepts (JAX
-    vmem_solver.py:918-955). ``schedule='interleaved'`` is not ported.
-    ``device``: ``None`` means CUDA; the CPU (the plain version) only when
-    named."""
+    vmem_solver.py:918-955). ``schedule``: 'batched' (K2) or 'interleaved'
+    (K4, aniso and 'joint'; 'sample' runs K2, as in JAX). ``device``:
+    ``None`` means CUDA; the CPU (the plain versions) only when named."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
     dev = resolve_device(device)
     xin = torch.as_tensor(xin, device=dev)
     kern = None if kern is None else torch.as_tensor(kern, device=dev)
@@ -189,4 +282,272 @@ def admm_tv_vmem(
         raise ValueError(f"whole solve supports aniso, 'sample' and 'joint', got {iso_mode!r}")
     fast_iters = fast_iterations(precision, fast_frac, maxit)
     hty, freq_full, rho, tau, mats = solve_inputs(xin, lmbd, rho, kern)
-    return _WholeSolve.apply(hty, freq_full, rho, tau, mode, maxit, fast_iters, *mats)
+    interleaved = schedule == "interleaved" and mode in (None, "joint")
+    pack = _fixed_pack(xin.shape, iso, iso_mode) if interleaved else None
+    return _WholeSolve.apply(hty, freq_full, rho, tau, mode, maxit, fast_iters, pack, *mats)
+
+
+# --- K3: the residual-stopped solve -----------------------------------------
+
+
+class AdaptiveConfig(NamedTuple):
+    """The static settings of one K3 solve (JAX :505-516, :850-864)."""
+
+    g: int  # planes per block
+    mode: Optional[str]  # None (aniso) | 'sample' | 'joint'
+    maxit: int
+    tol: float
+    rho_mu: float
+    rho_scale: float
+    fast_switch: float
+    fast_cap: int
+    return_state: bool
+
+    @property
+    def adapt(self) -> bool:
+        # rho_mu >= 1e29 turns residual balancing off as a Python branch, with
+        # factor exactly 1: the runtime test r > rho_mu * s would still fire
+        # at s == 0 (JAX :609-622)
+        return self.rho_mu < 1e29
+
+    @property
+    def use_fast(self) -> bool:
+        return self.fast_cap > 0 and self.fast_switch > self.tol
+
+
+def adaptive_config(shape, iso: bool, iso_mode: str, maxit: int, tol: float, rho_mu: float,
+                    rho_scale: float, precision: str, fast_switch, return_state: bool):
+    mode = iso_mode if iso else None
+    if mode not in MODES:
+        raise ValueError(f"whole solve supports aniso, 'sample' and 'joint', got {iso_mode!r}")
+    if precision == "mixed":
+        switch = float(fast_switch) if fast_switch is not None else max(20.0 * tol, 1e-2)
+        fast_cap = maxit - max(8, maxit // 8)
+    elif precision == "high":
+        switch, fast_cap = 0.0, 0
+    else:
+        raise ValueError(f"precision must be 'mixed' or 'high', got {precision!r}")
+    g = shape[1] if mode == "sample" else 1
+    return AdaptiveConfig(g, mode, int(maxit), float(tol), float(rho_mu), float(rho_scale),
+                          switch, fast_cap, bool(return_state))
+
+
+def adaptive_inputs(xin: torch.Tensor, lmbd, rho, kern: Optional[torch.Tensor], g: int):
+    """(hty, habs2, d2, lmbd_rho0, mats) as the JAX wrapper builds them
+    (:816-839): hty in blocks (n_blocks, g, H, W); |H|^2 and |D|^2 on the
+    full grid by the conjugate mirror, pre-scaled by H*W so the rebuilt
+    spectrum 1/(habs2 + rho d2) carries the inverse transform's 1/(H*W)."""
+    b, c, h, w = xin.shape
+    dtype, dev = xin.dtype, xin.device
+    lmbd = torch.as_tensor(lmbd, dtype=dtype, device=dev).reshape(())
+    rho = torch.as_tensor(rho, dtype=dtype, device=dev).reshape(())
+    d2 = fdops.grad_otf_abs2((h, w), dtype, dev)
+    if kern is None or kern.numel() == 0:
+        habs2 = torch.ones((h, w // 2 + 1), dtype=dtype, device=dev)
+    else:
+        otf = fdops.psf_otf(kern.to(dtype), (h, w))
+        habs2 = (otf.real**2 + otf.imag**2).reshape(h, w // 2 + 1)
+    hw = float(h * w)
+    habs2_full = mirror_freq_full_joint(habs2, w) * hw
+    d2_full = mirror_freq_full_joint(d2.expand(h, w // 2 + 1), w) * hw
+    mats = _transform_mats(h, w, kern, dev)
+    hty = _htran(xin, kern, (h, w), dtype).reshape(b * c // g, g, h, w)
+    return hty, habs2_full, d2_full, torch.stack([lmbd, rho]), mats
+
+
+def _schedule(k, r, sd, fast, cfg: AdaptiveConfig):
+    """After an iteration (or at the start): leave the fast phase once its
+    condition fails, resetting r and s to 1 (JAX :657-660), and decide which
+    blocks run the next iteration. The kernel's ``schedule`` in
+    csrc/vmem_adaptive.cu is the same test."""
+    stay = fast & (k < cfg.fast_cap) & ((r > cfg.fast_switch) | (sd > cfg.fast_switch))
+    leave = fast & ~stay
+    r = torch.where(leave, torch.ones_like(r), r)
+    sd = torch.where(leave, torch.ones_like(sd), sd)
+    run = stay | ((k < cfg.maxit) & ((r > cfg.tol) | (sd > cfg.tol)))
+    return run, stay, r, sd
+
+
+def _shrink_blocks(ax, ay, tau, mode):
+    """z = shrink(a, tau) with a per-block tau of shape (n_blocks, 1, 1, 1)
+    (JAX :578-591)."""
+    if mode is None:
+        return ax - torch.minimum(torch.maximum(ax, -tau), tau), ay - torch.minimum(
+            torch.maximum(ay, -tau), tau)
+    if mode == "sample":
+        nx = torch.sqrt(torch.sum(ax * ax, dim=1, keepdim=True) + _EPS)
+        ny = torch.sqrt(torch.sum(ay * ay, dim=1, keepdim=True) + _EPS)
+        return (torch.clamp_min(1.0 - tau / (nx + _EPS), 0.0) * ax,
+                torch.clamp_min(1.0 - tau / (ny + _EPS), 0.0) * ay)
+    mag = torch.sqrt(ax * ax + ay * ay + _EPS)
+    sc = torch.clamp_min(1.0 - tau / mag, 0.0)
+    return sc * ax, sc * ay
+
+
+def _adjoint_sum(tx, ty):
+    """Dx^T tx + Dy^T ty, summed in the TPU kernel's order."""
+    return tx - torch.roll(tx, -1, dims=-1) + ty - torch.roll(ty, -1, dims=-2)
+
+
+def admm_tv_adaptive_vmem_plain(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig):
+    """K3's plain version, all blocks at once: each iteration computes every
+    block and keeps the new values only where the block runs
+    (``torch.where`` on per-block masks); ``torch.matmul`` transforms, left
+    stage first. Returns (x, z_x, z_y, u_x, u_y, iters, r, s, rho) with the
+    planes in blocks (n_blocks, g, H, W) and per-block vectors."""
+    nb, _, h, w = hty.shape
+    dev = hty.device
+    lmbd, rho0 = lmbd_rho0[0], lmbd_rho0[1]
+    scale = torch.sqrt(torch.tensor(float(2 * cfg.g * h * w), dtype=torch.float32, device=dev))
+    x, zx, zy, ux, uy = (torch.zeros_like(hty) for _ in range(5))
+    s = hty
+    k = torch.zeros(nb, dtype=torch.int32, device=dev)
+    r = torch.ones(nb, dtype=torch.float32, device=dev)
+    sd = torch.ones_like(r)
+    rho = rho0.to(torch.float32).expand(nb).clone()
+    fast = torch.full((nb,), cfg.use_fast, dtype=torch.bool, device=dev)
+    run, fast, r, sd = _schedule(k, r, sd, fast, cfg)
+
+    def blk(v):
+        return v.reshape(nb, 1, 1, 1)
+
+    def xform(v):
+        if not bool(fast.any()):
+            return _xform(v, mats, False)
+        if bool(fast.all()):
+            return _xform(v, mats, True)
+        return torch.where(blk(fast), _xform(v, mats, True), _xform(v, mats, False))
+
+    one = torch.ones_like(r)
+    for _ in range(cfg.maxit):
+        if not bool(run.any()):
+            break
+        rb = blk(rho)
+        xn = xform(xform(s) * (1.0 / (habs2 + rb * d2)))
+        dxk, dyk = fdops.dx(xn), fdops.dy(xn)
+        ax, ay = dxk + ux, dyk + uy
+        zxn, zyn = _shrink_blocks(ax, ay, torch.clamp_min(lmbd / rb, 0.0), cfg.mode)
+        unx, uny = ax - zxn, ay - zyn
+        rx, ry = dxk - zxn, dyk - zyn
+        r_new = torch.sqrt(torch.sum(rx * rx, dim=(1, 2, 3)) + torch.sum(ry * ry, dim=(1, 2, 3))) / scale
+        sdual = rb * _adjoint_sum(zxn - zx, zyn - zy)
+        sd_new = torch.sqrt(torch.sum(sdual * sdual, dim=(1, 2, 3))) / scale
+        if cfg.adapt:
+            factor = torch.where(
+                r_new > cfg.rho_mu * sd_new, one * cfg.rho_scale,
+                torch.where(sd_new > cfg.rho_mu * r_new, one * (1.0 / cfg.rho_scale), one))
+        else:
+            factor = one
+        rho_new = rho * factor
+        inv_f = blk(1.0 / factor)
+        uxs, uys = unx * inv_f, uny * inv_f
+        s_new = hty + blk(rho_new) * _adjoint_sum(zxn - uxs, zyn - uys)
+        m = blk(run)
+        x, s = torch.where(m, xn, x), torch.where(m, s_new, s)
+        zx, zy = torch.where(m, zxn, zx), torch.where(m, zyn, zy)
+        ux, uy = torch.where(m, uxs, ux), torch.where(m, uys, uy)
+        k = k + run.to(torch.int32)
+        r, sd = torch.where(run, r_new, r), torch.where(run, sd_new, sd)
+        rho = torch.where(run, rho_new, rho)
+        nxt, stay, r2, sd2 = _schedule(k, r, sd, fast, cfg)
+        fast = torch.where(run, stay, fast)
+        r, sd = torch.where(run, r2, r), torch.where(run, sd2, sd)
+        run = run & nxt
+    return x, zx, zy, ux, uy, k, r, sd, rho
+
+
+def _launch_adaptive(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig):
+    check_planes("admm_tv_adaptive_vmem", hty)
+    nb, g, h, w = hty.shape
+    n_planes = nb * g
+    if habs2.shape != (h, w) or d2.shape != (h, w) or any(m.dtype != torch.float32 for m in mats):
+        raise ValueError("admm_tv_adaptive_vmem: spectra or matrices do not match the planes")
+    lib = _adaptive_lib()
+    dev = hty.device
+    x, zx, zy, ux, uy = (torch.empty_like(hty) for _ in range(5))
+    work = torch.empty(lib.admm_tv_adaptive_workspace(n_planes, h, w), dtype=torch.float32, device=dev)
+    state = torch.empty(2 * nb * 8, dtype=torch.int32, device=dev)  # 2 x n_blocks BlockStates
+    n_run = torch.empty(1, dtype=torch.int32, device=dev)
+    host_run = torch.empty(2, dtype=torch.int32, pin_memory=True)
+    iters = torch.empty(nb, dtype=torch.int32, device=dev)
+    stats = torch.empty(3, nb, dtype=torch.float32, device=dev)
+    m = list(mats) + [None] * (4 - len(mats))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    scale = float(np.sqrt(np.float32(2 * g * h * w)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.admm_tv_adaptive_solve(
+            hty.data_ptr(), habs2.data_ptr(), d2.data_ptr(), *(ptr(t) for t in m), len(mats),
+            lmbd_rho0.data_ptr(), x.data_ptr(), zx.data_ptr(), zy.data_ptr(), ux.data_ptr(),
+            uy.data_ptr(), work.data_ptr(), state.data_ptr(), n_run.data_ptr(),
+            host_run.data_ptr(), iters.data_ptr(), stats.data_ptr(),
+            n_planes, g, h, w, MODES[cfg.mode], cfg.maxit, cfg.tol, int(cfg.adapt),
+            cfg.rho_mu, cfg.rho_scale, int(cfg.use_fast),
+            cfg.fast_switch, cfg.fast_cap, scale, POLL, stream,
+        )
+    check(status, "admm_tv_adaptive_solve")
+    ADAPTIVE_LAUNCHES.add()
+    return (x, zx, zy, ux, uy, iters, *(v.clone() for v in stats))
+
+
+class _AdaptiveSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hty, habs2, d2, lmbd_rho0, cfg, *mats):
+        if hty.is_cuda:
+            return _launch_adaptive(
+                hty.contiguous(), habs2.contiguous(), d2.contiguous(),
+                [mm.contiguous() for mm in mats], lmbd_rho0.to(torch.float32).contiguous(), cfg,
+            )
+        return admm_tv_adaptive_vmem_plain(hty, habs2, d2, mats, lmbd_rho0, cfg)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(FORWARD_ONLY)
+
+
+def admm_tv_adaptive_vmem(
+    xin,
+    lmbd,
+    rho,
+    kern=None,
+    iso: bool = False,
+    maxit: int = 500,
+    *,
+    tol: float = 1e-4,
+    iso_mode: str = "sample",
+    rho_mu: float = 10.0,
+    rho_scale: float = 2.0,
+    precision: str = "mixed",
+    fast_switch: Optional[float] = None,
+    return_state: bool = False,
+    device=None,
+):
+    """Whole-solve TV-ADMM with residual stopping and adaptive rho per
+    block (JAX vmem_solver.py:724-915): each plane, or each sample in
+    'sample' mode, stops as soon as its own scaled residuals reach ``tol``.
+
+    ``precision='mixed'`` (default) runs single-pass bf16 transforms while
+    a residual sits above ``fast_switch`` (default ``max(20 tol, 1e-2)``)
+    and fewer than ``maxit - max(8, maxit // 8)`` iterations have run, then
+    float32; the exit residuals always come from float32 iterations.
+
+    Returns an ``AdaptiveResult`` whose ``iters`` (int32), ``r_norm``,
+    ``s_norm`` and ``rho`` (float32) have shape (n_blocks,); with
+    ``return_state`` ``(AdaptiveResult, (x, z_x, z_y, u_x, u_y))``, the
+    ADMM state at exit. ``device``: ``None`` means CUDA; the CPU (the plain
+    version) only when named."""
+    dev = resolve_device(device)
+    xin = torch.as_tensor(xin, device=dev)
+    kern = None if kern is None else torch.as_tensor(kern, device=dev)
+    if xin.dim() != 4:
+        raise ValueError(f"admm_tv_adaptive_vmem expects (B, C, H, W), got {tuple(xin.shape)}")
+    cfg = adaptive_config(xin.shape, iso, iso_mode, maxit, tol, rho_mu, rho_scale, precision,
+                          fast_switch, return_state)
+    hty, habs2, d2, lmbd_rho0, mats = adaptive_inputs(xin, lmbd, rho, kern, cfg.g)
+    x, zx, zy, ux, uy, iters, r, sd, rho_f = _AdaptiveSolve.apply(hty, habs2, d2, lmbd_rho0, cfg,
+                                                                  *mats)
+    shape = xin.shape
+    result = AdaptiveResult(x=x.reshape(shape), iters=iters, r_norm=r, s_norm=sd, rho=rho_f)
+    if return_state:
+        return result, tuple(t.reshape(shape) for t in (x, zx, zy, ux, uy))
+    return result

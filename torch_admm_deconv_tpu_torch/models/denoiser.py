@@ -71,6 +71,7 @@ def flagship_divergent_restorer(
     max_iters: int = 100,
     remat: bool = True,
     use_pallas: bool = False,
+    gradient_mode: str = "unroll",
     *,
     device=None,
     generator=None,
@@ -80,9 +81,11 @@ def flagship_divergent_restorer(
     reduction 8, and two kernel-less isotropic 100-iteration ADMM layers.
 
     ``use_pallas=True`` runs the ADMM layers through the whole-solve kernel:
-    inference only (no backward); pair it with ``remat=False``."""
+    inference only (no backward); pair it with ``remat=False``.
+    ``gradient_mode="implicit"`` trains the ADMM layers through their
+    converged fixed point (``ops/implicit.py``) instead of the unroll."""
     admm = {"kern_size": (), "max_iters": max_iters, "iso": True, "remat": remat,
-            "use_pallas": use_pallas}
+            "use_pallas": use_pallas, "gradient_mode": gradient_mode}
     return DivergentRestorer(
         level_branches=[2, 8, 32], in_channels=3, final_channels=3, filters=86,
         gate_channels=86, attention_reduction=8, output_activation=output_activation,

@@ -1,6 +1,6 @@
 """Batched FFT-based TV-regularized ADMM deconvolution: the solver core.
 
-Counterpart of torch_admm_deconv_tpu/ops/solver.py (:47-283). Each
+Counterpart of torch_admm_deconv_tpu/ops/solver.py (:47-446). Each
 iteration is one x-update (``torch.fft.rfft2`` / ``irfft2`` with the real
 frequency diagonal) and one elementwise pass that fuses the shrinkage, the
 dual update and the next x-update right-hand side; H^T y is hoisted out of
@@ -8,7 +8,9 @@ the loop. ``admm_tv`` keeps the JAX dispatch: with ``use_pallas`` and not
 ``remat`` an eligible solve runs whole in the K2 kernel
 (kernels/vmem_solver.py), otherwise the loop below runs, with the K1 kernel
 (kernels/fused_admm.py) as its elementwise step when ``use_pallas`` is set
-and the mode is not 'compat'.
+and the mode is not 'compat'. ``admm_tv_adaptive`` is the classical solve
+with residual stopping and adaptive rho (one global stopping decision, the
+same ``torch.fft`` loop), and ``tv_objective`` the diagnostic objective.
 """
 
 from __future__ import annotations
@@ -190,3 +192,138 @@ def _admm_tv_scan(
         else:
             state = ADMMState(*step(state.s, state.u_x, state.u_y))
     return state.x.reshape(state.x.shape[squeeze:])
+
+
+def _residual_norms(x, z_x, z_y, z_x_old, z_y_old, rho, axis_reduce):
+    """Scaled-form ADMM residuals (Boyd et al. 3.3; JAX solver.py:286-293)."""
+    rx = fdops.dx(x) - z_x
+    ry = fdops.dy(x) - z_y
+    r = torch.sqrt(axis_reduce(rx * rx + ry * ry))
+    sdual = rho * (fdops.dx_t(z_x - z_x_old) + fdops.dy_t(z_y - z_y_old))
+    s = torch.sqrt(axis_reduce(sdual * sdual))
+    return r, s
+
+
+class AdaptiveResult(NamedTuple):
+    """JAX solver.py:296-301."""
+
+    x: torch.Tensor
+    iters: torch.Tensor  # iterations actually run
+    r_norm: torch.Tensor  # final primal residual (relative)
+    s_norm: torch.Tensor  # final dual residual (relative)
+    rho: torch.Tensor  # final penalty
+
+
+def admm_tv_adaptive(
+    xin,
+    lmbd,
+    rho,
+    kern=None,
+    iso: bool = False,
+    maxit: int = 500,
+    *,
+    tol: float = 1e-4,
+    iso_mode: str = "sample",
+    adapt_rho: bool = True,
+    rho_mu: float = 10.0,
+    rho_scale: float = 2.0,
+    check_every: int = 1,
+    psum_axis: Optional[str] = None,
+    fft_impl: str = "auto",
+    device=None,
+) -> AdaptiveResult:
+    """Classical TV-ADMM with residual stopping and adaptive rho (JAX
+    solver.py:308-427): iterate until both relative residuals are <= ``tol``
+    or ``maxit`` is hit, one stopping decision for the whole batch. With
+    ``adapt_rho`` the penalty follows residual balancing (Boyd 3.4.1): rho
+    *= rho_scale when r > rho_mu s, /= rho_scale when s > rho_mu r, the
+    scaled duals rescaled by 1/factor, the spectrum rebuilt from the cached
+    |H|^2 and |D|^2. The stopping test reads both residuals on the host
+    every iteration. ``check_every`` and ``fft_impl`` are accepted for
+    parity (the JAX function ignores the first; every value of the second
+    runs ``torch.fft``). ``psum_axis`` belongs to the multi-device port and
+    raises until then. Not differentiable in JAX (a while loop); use
+    :func:`admm_tv` or ``ops.implicit.admm_tv_implicit`` for training.
+    ``device``: ``None`` means CUDA; the CPU only when named."""
+    if psum_axis is not None:
+        raise NotImplementedError("admm_tv_adaptive(psum_axis=...) needs the multi-device port")
+    if fft_impl not in FFT_IMPLS:
+        raise ValueError(f"unknown fft_impl: {fft_impl!r}")
+    dev = resolve_device(device)
+    xin = torch.as_tensor(xin, device=dev)
+    kern = None if kern is None else torch.as_tensor(kern, device=dev)
+    squeeze = 4 - xin.ndim
+    xin = xin.reshape((1,) * squeeze + tuple(xin.shape))
+    k, (x, *_), r, s, rho_f = _adaptive_loop(
+        xin, _as_scalar(lmbd, xin), _as_scalar(rho, xin), kern, iso, maxit, tol, iso_mode,
+        adapt_rho, rho_mu, rho_scale,
+    )
+    return AdaptiveResult(
+        x=x.reshape(x.shape[squeeze:]), iters=torch.tensor(k, dtype=torch.int32, device=dev),
+        r_norm=r, s_norm=s, rho=rho_f,
+    )
+
+
+def _adaptive_loop(xin, lmbd, rho, kern, iso, maxit, tol, iso_mode, adapt_rho, rho_mu,
+                   rho_scale):
+    """The residual-stopped loop of :func:`admm_tv_adaptive` on (B, C, H, W)
+    with scalar tensors lmbd and rho; also the fixed-rho solve of
+    ``ops.implicit`` (``adapt_rho=False``). Returns (iterations, (x, z_x,
+    z_y, u_x, u_y), r, s, rho)."""
+    im_shape = tuple(xin.shape[-2:])
+    dtype, dev = xin.dtype, xin.device
+    d2 = fdops.grad_otf_abs2(im_shape, dtype, dev)
+    if kern is None or kern.numel() == 0:
+        h_abs2 = torch.ones((), dtype=dtype, device=dev)
+    else:
+        otf = fdops.psf_otf(kern.to(dtype), im_shape)
+        h_abs2 = (otf.real**2 + otf.imag**2).reshape(im_shape[0], im_shape[1] // 2 + 1)
+    hty = _htran(xin, kern, im_shape, dtype)
+    scale = torch.sqrt(torch.tensor(2.0 * xin.numel(), dtype=dtype, device=dev))
+
+    zeros = torch.zeros_like(xin)
+    x, z_x, z_y, u_x, u_y = zeros, zeros, zeros, zeros, zeros
+    r = s = torch.ones((), dtype=dtype, device=dev)
+    k = 0
+    while k < maxit and bool((r > tol) | (s > tol)):
+        freq_c = 1.0 / (h_abs2 + rho * d2)
+        s_rhs = hty + rho * (fdops.dx_t(z_x - u_x) + fdops.dy_t(z_y - u_y))
+        x = _x_update(s_rhs, freq_c, im_shape)
+        dxk = fdops.dx(x)
+        dyk = fdops.dy(x)
+        z_x_new, z_y_new = _shrink(dxk + u_x, dyk + u_y, lmbd / rho, iso, iso_mode)
+        u_x = u_x + dxk - z_x_new
+        u_y = u_y + dyk - z_y_new
+        r, s = _residual_norms(x, z_x_new, z_y_new, z_x, z_y, rho, torch.sum)
+        r, s = r / scale, s / scale
+        z_x, z_y = z_x_new, z_y_new
+        if adapt_rho:
+            factor = torch.where(r > rho_mu * s, rho_scale,
+                                 torch.where(s > rho_mu * r, 1.0 / rho_scale, 1.0)).to(dtype)
+            rho = rho * factor
+            u_x = u_x / factor
+            u_y = u_y / factor
+        k += 1
+    return k, (x, z_x, z_y, u_x, u_y), r, s, rho
+
+
+def tv_objective(x, xin, lmbd, kern=None, iso: bool = False, *, device=None):
+    """0.5 ||H x - y||^2 + lambda TV(x), a diagnostic (JAX solver.py:430-446).
+    ``device``: ``None`` means CUDA; the CPU only when named."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, device=dev)
+    xin = torch.as_tensor(xin, device=dev)
+    if kern is None or torch.as_tensor(kern).numel() == 0:
+        hx = x
+    else:
+        kern = torch.as_tensor(kern, device=dev)
+        im_shape = tuple(x.shape[-2:])
+        otf_c = fdops.psf_otf_centered(kern.to(x.dtype), im_shape)
+        hx = torch.fft.irfft2(otf_c * torch.fft.rfft2(x), s=im_shape)
+    data = 0.5 * torch.sum((hx - xin) ** 2)
+    gx, gy = fdops.dx(x), fdops.dy(x)
+    if iso:
+        tv = torch.sum(torch.sqrt(gx * gx + gy * gy + 1e-15))
+    else:
+        tv = torch.sum(torch.abs(gx) + torch.abs(gy))
+    return data + lmbd * tv
