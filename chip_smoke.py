@@ -19,6 +19,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -27,8 +28,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, HBM3
+# H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, the
+# tensor cores in TF32 and bf16, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 CHAIN_FLOPS_PER_PIXEL = 25  # differences, shrinkage, dual update, adjoint sum
 # K3's chain adds the residuals and their sums, the dual rescale and the
@@ -132,16 +136,109 @@ def transform_flops(h: int, w: int, n_mats: int) -> int:
     return (2 if n_mats == 2 else 4) * h * w * (h + w)
 
 
+def solve_bound(exact_flops: float, fast_flops: float, chain_flops: float, nbytes: float):
+    """(bound_ms, bound_by, f32_simt_bound_ms) of a whole solve: the larger
+    of its bytes at 3.35 TB/s and the operations it issues at their own
+    peaks, three TF32 tensor-core passes per exact (3xTF32) product flop,
+    one bf16 pass per fast-phase product flop, and the chain's float32 flops
+    at 67 TFLOP/s. The third value is the float32-SIMT bound (every flop at
+    67 TFLOP/s), kept for comparison with the earlier SIMT products."""
+    t_ops = (3 * exact_flops / PEAK_TF32_FLOPS + fast_flops / PEAK_BF16_FLOPS
+             + chain_flops / PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    t_simt = max(t_bytes, (exact_flops + fast_flops + chain_flops) / PEAK_F32_FLOPS)
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", t_simt * 1e3
+
+
 def adaptive_bound(iters, g: int, h: int, w: int, n_mats: int, planes_io: int):
-    """(bound_ms, bound_by, GFLOP) of a K3 solve: the operations of the
-    iterations this run's blocks actually ran, against the bytes of reading
-    hty and writing ``planes_io`` - 1 output planes per input plane."""
-    per_block = g * (2 * transform_flops(h, w, n_mats) + ADAPTIVE_CHAIN_FLOPS_PER_PIXEL * h * w)
-    flops = int(np.asarray(iters).sum()) * per_block
+    """(bound_ms, bound_by, GFLOP, f32_simt_bound_ms) of a K3 solve: the
+    operations of the iterations this run's blocks actually ran, every
+    product counted as 3xTF32 (the fast phase of 'mixed' is not observed
+    per iteration, so its cheaper bf16 passes are counted as exact),
+    against the bytes of reading hty and writing ``planes_io`` - 1 output
+    planes per input plane."""
+    block_iters = int(np.asarray(iters).sum())
+    products = block_iters * g * 2 * transform_flops(h, w, n_mats)
+    chain = block_iters * g * ADAPTIVE_CHAIN_FLOPS_PER_PIXEL * h * w
     n_planes = len(iters) * g
     nbytes = planes_io * n_planes * h * w * 4 + (2 * h * w + n_mats * h * h) * 4
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", flops / 1e9
+    bound_ms, bound_by, simt_ms = solve_bound(products, 0.0, chain, nbytes)
+    return bound_ms, bound_by, (products + chain) / 1e9, simt_ms
+
+
+def fixed_bound(numel: int, h: int, w: int, n_mats: int, maxit: int, fast_iters: int):
+    """solve_bound of a K2 or K4 solve of ``numel`` floats of planes."""
+    per_iter = numel // (h * w) * 2 * transform_flops(h, w, n_mats)
+    nbytes = 2 * numel * 4 + h * w * 4 + n_mats * h * h * 4
+    return solve_bound(per_iter * (maxit - fast_iters), per_iter * fast_iters,
+                       maxit * CHAIN_FLOPS_PER_PIXEL * numel, nbytes)
+
+
+def require_share(name: str, ms: float, bound_ms: float) -> float:
+    """The share of the bound a measured time reaches; above 1 the bound
+    is wrong, and the run fails."""
+    share = bound_ms / ms
+    require(share <= 1.0, f"{name}: {ms} ms is below its bound {bound_ms} ms")
+    return share
+
+
+def tensor_core_instructions(lib) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel of a built
+    library, counted in ``cuobjdump --dump-sass``."""
+    from torch_admm_deconv_tpu_torch.kernels._build import demangle
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    chunks = re.split(r"\n\s*Function : ", sass)[1:]
+    names = demangle([c.split("\n", 1)[0].strip() for c in chunks])
+    return {n: len(re.findall(r"\bHG?MMA\.", c)) for n, c in zip(names, chunks)}
+
+
+def launches_per_solve(solves: dict) -> dict:
+    """Device operations of one call of each solve under one torch.profiler
+    session (a second session in this script recorded no device events):
+    ``solves`` maps a name to its calls at two or more iteration counts,
+    each warmed up first. A call's operations are the device events that
+    start inside its labelled range, which ends in a synchronize. Fails
+    unless a solve is one persistent launch, the same number of operations
+    at every depth, with no host wait or copy to the host inside."""
+    calls = [(f"{name} @ {depth}", fn) for name, by_depth in solves.items()
+             for depth, fn in by_depth.items()]
+    for _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for label, fn in calls:
+            with torch.profiler.record_function(label):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cpu, card = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    per_call = {}
+    for label, _ in calls:
+        rng = next(e.time_range for e in events if e.name == label)
+        inside = lambda e: rng.start <= e.time_range.start <= rng.end  # noqa: E731, B023
+        on_card = [e for e in events if e.device_type == card and inside(e)]
+        waits = sum(e.device_type == cpu and inside(e)
+                    and e.name in ("cudaEventSynchronize", "cudaStreamSynchronize")
+                    for e in events)
+        per_call[label] = (len(on_card), sum("persistent" in e.name for e in on_card), waits,
+                           sum("DtoH" in e.name for e in on_card))
+    out = {}
+    for name, by_depth in solves.items():
+        counts = [per_call[f"{name} @ {depth}"] for depth in by_depth]
+        log(f"{name}: device operations per solve {[c[0] for c in counts]} at maxit "
+            f"{list(by_depth)} (persistent launches {[c[1] for c in counts]}, host waits "
+            f"{[c[2] for c in counts]}, copies to the host {[c[3] for c in counts]}; "
+            f"torch.profiler)")
+        require(len({c[0] for c in counts}) == 1, f"{name}: device operations grow with maxit")
+        require(all(c[1] == 1 for c in counts), f"{name}: not one persistent launch per solve")
+        require(all(c[2] == 0 and c[3] == 0 for c in counts),
+                f"{name}: the host waits inside a solve")
+        out[name] = counts[0][0]
+    return out
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -169,9 +266,9 @@ def k3_vs_plain(dev, tile, psfs):
     for name, iso, iso_mode, psf, precision, rho_mu, state in cases:
         kern = None if psf is None else torch.from_numpy(psfs[psf]).to(dev)
         lmbd, rho = (0.05, 0.8) if psf is None else (0.01, 1.0)
-        # f32 SIMT products against cuBLAS f32: 2e-4 (the K2 bar); 'mixed'
-        # rounds operands to bf16, where a one-ulp flip between the two
-        # summation orders survives the exact tail: 2e-3
+        # 3xTF32 tensor-core products against cuBLAS f32: 2e-4 (the K2
+        # bar); 'mixed' rounds operands to bf16, where a one-ulp flip between
+        # the two summation orders survives the exact tail: 2e-3
         x_tol = 2e-4 if precision == "high" else 2e-3
         launched = vmem_solver.ADAPTIVE_LAUNCHES.n
         for tol, maxit in ((0.0, 60), (1e-4, 500)):
@@ -205,17 +302,20 @@ def k3_vs_plain(dev, tile, psfs):
                     f"s - tol {float(sd[b]) - tol:.3e} / {float(want[7][b]) - tol:.3e}")
             ms = cuda_ms(run, 3)
             plain_ms = cuda_ms(plain, 3)
-            bound_ms, bound_by, gflop = adaptive_bound(iters_k, cfg.g, *xt.shape[-2:], len(mats),
-                                                       6 if state else 2)
+            bound_ms, bound_by, gflop, simt_ms = adaptive_bound(iters_k, cfg.g, *xt.shape[-2:],
+                                                                len(mats), 6 if state else 2)
+            share = require_share(f"K3 {name}", ms, bound_ms)
             log(f"K3 {name} tol {tol} (max {maxit}): iters {iters_k.tolist()} / plain "
                 f"{iters_p.tolist()}, max r {float(r.max()):.3e} s {float(sd.max()):.3e}, "
                 f"rho {rho_f.tolist()}, max|diff| {err:.3e}; {ms:.3f} ms (CUDA events), plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {gflop:.2f} GFLOP)")
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {gflop:.2f} GFLOP; "
+                f"{share:.1%} of it), f32 SIMT bound {simt_ms:.4f} ms")
             require(bool(done.all()) and bool(done_p.all()),
                     f"K3 {name}: a block stopped before reaching tol")
             require(int(gap.max()) <= 1, f"K3 {name}: iteration counts differ by more than 1")
             out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None, "iters": iters_k.tolist(),
+                         "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
+                         "library_ms": None, "iters": iters_k.tolist(),
                          "max_abs_err": err,
                          "launches": vmem_solver.ADAPTIVE_LAUNCHES.n - launched}
     return out
@@ -262,17 +362,16 @@ def k4_vs_plain_and_k2(dev, batch8, psfs):
             f"(CUDA events)")
         out[name] = {"ms": ms, "k2_ms": k2_ms, "max_abs_err": err, "err_vs_k2": err_k2}
         if name == "aniso":
-            h = w = 256
-            flops = 100 * xb.shape[0] * xb.shape[1] * (2 * transform_flops(h, w, len(mats))
-                                                       + CHAIN_FLOPS_PER_PIXEL * h * w)
-            nbytes = 2 * xb.numel() * 4 + h * w * 4 + len(mats) * h * h * 4
+            bound_ms, bound_by, simt_ms = fixed_bound(xb.numel(), 256, 256, len(mats), 100, fast)
+            share = require_share("K4", ms, bound_ms)
+            log(f"K4 aniso bound {bound_ms:.4f} ms ({bound_by}; {share:.1%} of it), f32 SIMT "
+                f"bound {simt_ms:.4f} ms")
             out["entry"] = {
                 "name": "admm_tv_vmem_interleaved", "route": "cuda",
                 "source": "torch_admm_deconv_tpu_torch/csrc/vmem_solver.cu",
                 "replaces": "torch_admm_deconv_tpu/kernels/vmem_solver.py:134",
                 "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(plain, 1),
-                "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS) * 1e3,
-                "bound_by": "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+                "bound_ms": bound_ms, "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
                 "library_ms": None}
             out["k2_out"] = batched
     return out
@@ -304,12 +403,13 @@ def classical_full_size(dev, rng):
         r_max, s_max = float(res.r_norm.max()), float(res.s_norm.max())
         p_out = psnr(res.x.cpu().numpy(), clean)
         loop_err = max_diff(res.x, loop.x)
-        bound_ms, bound_by, gflop = adaptive_bound(iters, 1, 512, 512, 2, 2)
+        bound_ms, bound_by, gflop, simt_ms = adaptive_bound(iters, 1, 512, 512, 2, 2)
+        share = require_share(f"K3 classical {precision}", ms, bound_ms)
         log(f"K3 classical (8, 3, 512, 512) {precision}: {ms:.3f} ms (CUDA events), iters "
             f"{iters.tolist()} (sum {int(iters.sum())}; the loop {int(loop.iters)} x 24 planes), "
             f"max r {r_max:.3e} s {s_max:.3e} (tol 1e-5), PSNR {p_in:.3f} -> {p_out:.3f} dB, "
             f"max|K3 - loop| {loop_err:.3e} (tol 5e-3), bound {bound_ms:.3f} ms ({bound_by}, "
-            f"{gflop:.1f} GFLOP)")
+            f"{gflop:.1f} GFLOP; {share:.1%} of it), f32 SIMT bound {simt_ms:.3f} ms")
         require(torch.isfinite(res.x).all(), f"K3 classical {precision}: non-finite output")
         require(r_max <= 1e-5 and s_max <= 1e-5, f"K3 classical {precision}: residuals above tol")
         require(p_out > p_in, f"K3 classical {precision}: no PSNR gain")
@@ -317,7 +417,8 @@ def classical_full_size(dev, rng):
         # test's bar (tests/test_vmem_solver.py:130)
         require(loop_err <= 5e-3, f"K3 classical {precision} disagrees with the loop: {loop_err}")
         out[precision] = {"ms": ms, "iters": iters.tolist(), "r_max": r_max, "s_max": s_max,
-                          "psnr_out": p_out, "err_vs_loop": loop_err, "bound_ms": bound_ms}
+                          "psnr_out": p_out, "err_vs_loop": loop_err, "bound_ms": bound_ms,
+                          "bound_f32_simt_ms": simt_ms}
         if precision == "high":
             cfg = vmem_solver.adaptive_config(xt.shape, False, "sample", 2000, 1e-5, 10.0, 2.0,
                                               "high", None, False)
@@ -329,15 +430,37 @@ def classical_full_size(dev, rng):
             plain_ms = start.elapsed_time(end)
             err = max_diff(res.x, want[0].reshape(xt.shape))
             gap = int((iters - want[5].cpu()).abs().max())
+            # how far rounding alone moves the stopping iteration here: the
+            # plain version with float64 products against the float32 one.
+            # K3's products (3xTF32) round otherwise than cuBLAS's float32,
+            # so K3 is held to stop no farther from the float64 reference
+            # than the float32 plain version does (and within 1 where that
+            # one matches it)
+            xform = vmem_solver._xform
+            vmem_solver._xform = lambda v, m, fast: xform(v.double(), [q.double() for q in m],
+                                                          False).float()
+            try:
+                ref = vmem_solver.admm_tv_adaptive_vmem_plain(hty, habs2, d2, mats, lr, cfg)
+            finally:
+                vmem_solver._xform = xform
+            ref_gap = int((want[5] - ref[5]).abs().max())
+            ref_gap_k3 = int((iters - ref[5].cpu()).abs().max())
             log(f"K3 classical high vs plain: max|diff| {err:.3e} (tol 2e-4), iters differ by at "
-                f"most {gap}; plain {plain_ms:.3f} ms")
-            require(err <= 2e-4 and gap <= 1, f"K3 classical disagrees with its plain version: {err}")
+                f"most {gap}; plain {plain_ms:.3f} ms. Rounding alone: the plain version with "
+                f"float64 products stops up to {ref_gap} iterations from the float32 one (K3: "
+                f"{ref_gap_k3}), max|diff| {max_diff(want[0], ref[0]):.3e}")
+            require(err <= 2e-4, f"K3 classical disagrees with its plain version: {err}")
+            require(ref_gap_k3 <= max(1, ref_gap),
+                    f"K3 classical stops {ref_gap_k3} iterations from the float64 reference, "
+                    f"the float32 plain version {ref_gap}")
+            out["iteration_gaps"] = {"k3_vs_plain": gap, "plain_vs_f64_products": ref_gap,
+                                     "k3_vs_f64_products": ref_gap_k3}
             out["entry"] = {
                 "name": "admm_tv_adaptive_vmem", "route": "cuda",
                 "source": "torch_admm_deconv_tpu_torch/csrc/vmem_adaptive.cu",
                 "replaces": "torch_admm_deconv_tpu/kernels/vmem_solver.py:505",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+                "bound_by": bound_by, "bound_f32_simt_ms": simt_ms, "library_ms": None}
     return out
 
 
@@ -375,8 +498,15 @@ def implicit_training(dev, tile, clean_tile):
         require(launched == 1, f"the implicit layer's forward must launch K3 once, launched {launched}")
         return x, t1 - t0, time.perf_counter() - t1
 
-    layer_step()  # warm-up: first-call costs of the FFT plans and autograd
-    x, fwd_s, bwd_s = layer_step()
+    # host-bound steps whose time varies up to 2x from one step to the next
+    # on a shared host: the median of 5 after a warm-up (first-call costs of
+    # the FFT plans and autograd), with the range
+    layer_step()
+    steps = [layer_step() for _ in range(5)]
+    x = steps[-1][0]
+    fwd = [f for _, f, _ in steps]
+    bwd = [b for _, _, b in steps]
+    fwd_s, bwd_s = statistics.median(fwd), statistics.median(bwd)
     lm, rh = layer.lmbda.detach().reshape(()), layer.rho.detach().reshape(())
     with torch.no_grad():
         res, k3_state = vmem_solver.admm_tv_adaptive_vmem(
@@ -400,7 +530,9 @@ def implicit_training(dev, tile, clean_tile):
     # 1e-2 of lambda's gradient
     err_r = abs(float(got[2] - ref[2])) / abs(float(ref[1]))
     log(f"implicit ADMM layer (1, 3, 256, 256) sample: K3 launches 1 per forward, K3 iters "
-        f"{res.iters.tolist()}; warm step forward {fwd_s:.4f} s, backward {bwd_s:.4f} s; exit "
+        f"{res.iters.tolist()}; warm steps (median of 5, min-max) forward {fwd_s:.4f} s "
+        f"[{min(fwd):.4f}, {max(fwd):.4f}], backward {bwd_s:.4f} s [{min(bwd):.4f}, "
+        f"{max(bwd):.4f}]; exit "
         f"state max|K3 - loop| {state_err:.3e} (tol 1e-3); gradients against the loop state's: "
         f"xin rel L2 {err_x:.3e} (max_rel {max_x:.3e}), lambda rel {err_l:.3e} "
         f"({float(got[1]):.6e} vs {float(ref[1]):.6e}), rho {err_r:.3e} of lambda's "
@@ -408,28 +540,29 @@ def implicit_training(dev, tile, clean_tile):
     require(state_err <= 1e-3, f"implicit layer: K3 exit state disagrees with the loop: {state_err}")
     require(max(err_x, err_l, err_r) <= 1e-2, "implicit layer: gradients disagree with the loop's")
     out["layer_forward_s"], out["layer_backward_s"] = fwd_s, bwd_s
+    out["layer_forward_samples_s"], out["layer_backward_samples_s"] = fwd, bwd
 
     # (b) the flagship at full width, the train.py --gradient_mode implicit path
     model = flagship_divergent_restorer(gradient_mode="implicit", device=dev,
                                         generator=torch.Generator().manual_seed(0))
     times = []
-    for _ in range(2):  # a warm-up step, then the timed one
+    for _ in range(6):  # a warm-up step, then 5 timed ones
         model.zero_grad()
         t0 = time.perf_counter()
         loss = torch.mean((model(xin) - clean) ** 2)
         loss.backward()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    flag_s = times[-1]
+    flag_s = statistics.median(times[1:])
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     finite = all(bool(torch.isfinite(gr).all()) for gr in grads)
     nonzero = sum(bool(gr.abs().max() > 0) for gr in grads)
-    log(f"implicit flagship (1, 3, 256, 256): forward+backward {flag_s:.3f} s (first step "
-        f"{times[0]:.3f} s), loss "
+    log(f"implicit flagship (1, 3, 256, 256): forward+backward {flag_s:.3f} s (median of 5, "
+        f"[{min(times[1:]):.3f}, {max(times[1:]):.3f}]; first step {times[0]:.3f} s), loss "
         f"{float(loss.detach()):.6f}, {len(grads)} parameter gradients, {nonzero} nonzero, finite {finite}")
     require(bool(torch.isfinite(loss)) and finite and nonzero > 0,
             "implicit flagship: gradients not finite or all zero")
-    out["flagship_s"] = flag_s
+    out["flagship_s"], out["flagship_samples_s"] = flag_s, times[1:]
     return out
 
 
@@ -439,7 +572,7 @@ def main() -> int:
         return 2
 
     from torch_admm_deconv_tpu_torch.kernels import fused_admm, vmem_solver
-    from torch_admm_deconv_tpu_torch.kernels._build import LIBRARIES
+    from torch_admm_deconv_tpu_torch.kernels._build import LIBRARIES, ptxas_kernels
     from torch_admm_deconv_tpu_torch.infer import classical_restorer, restore_image
     from torch_admm_deconv_tpu_torch.models.denoiser import flagship_divergent_restorer
     from torch_admm_deconv_tpu_torch.ops.solver import _elementwise_step, admm_tv
@@ -457,15 +590,27 @@ def main() -> int:
     log(f"card: {smi}")
     log(f"tf32: matmul={torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    LIBRARIES.build()
+    built = LIBRARIES.build()
     LIBRARIES.load("fused_admm")
     LIBRARIES.load("vmem_solver")
     LIBRARIES.load("vmem_adaptive")
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {LIBRARIES.build_seconds} s)")
     if LIBRARIES.ptxas_log:
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", LIBRARIES.ptxas_log)]
-        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", LIBRARIES.ptxas_log))
-        log(f"ptxas: {len(regs)} kernels, max {max(regs)} registers/thread, {spills} bytes spilled")
+        kernels = ptxas_kernels(LIBRARIES.ptxas_log)
+        for k in kernels:
+            log(f"ptxas: {k['kernel']}: {k['registers']} registers, {k['spill_stores']} bytes spill "
+                f"stores, {k['spill_loads']} bytes spill loads")
+        spills = sum(k["spill_stores"] for k in kernels)
+        log(f"ptxas: {len(kernels)} kernels, max {max(k['registers'] for k in kernels)} "
+            f"registers/thread, {spills} bytes spilled")
+    # K2 and K3 compute their products on the tensor cores
+    for lib, kernel in (("vmem_solver", "k2_persistent"), ("vmem_adaptive", "k3_persistent")):
+        counts = {n: c for n, c in tensor_core_instructions(built / f"lib{lib}.so").items()
+                  if kernel in n}
+        for n, c in counts.items():
+            log(f"SASS: {n}: {c} tensor-core instructions (HMMA/HGMMA)")
+        require(len(counts) > 0 and min(counts.values()) > 0,
+                f"{kernel}: no tensor-core instructions in its SASS")
 
     # -- phase 2: K1 against its plain version -------------------------------
     # same float32 chain, different association and FMA contraction: 1e-5
@@ -505,9 +650,10 @@ def main() -> int:
     gauss, motion = gaussian_psf(9, 1.5), motion_psf(9)
     batch8 = np.stack([synthetic_image(rng, 3, 256, 256) for _ in range(8)])
     batch8 += rng.normal(0.0, 15.0 / 255.0, batch8.shape).astype(np.float32)
-    # f32 SIMT products against cuBLAS f32 over 100 nonlinear iterations: 2e-4;
-    # 'mixed' rounds operands to bf16, where a one-ulp flip (~4e-3 relative)
-    # between the two summation orders survives a 25-iteration tail: 2e-3
+    # 3xTF32 tensor-core products against cuBLAS f32 over 100 nonlinear
+    # iterations: 2e-4; 'mixed' rounds operands to bf16, where a one-ulp flip
+    # (~4e-3 relative) between the two summation orders survives a
+    # 25-iteration tail: 2e-3
     cases = [
         ("sample", noisy_tile[None], None, True, "sample", "high", 0.05, 1.0, 2e-4),
         ("aniso_gauss9", noisy_tile[None], gauss, False, "joint", "high", 0.01, 1.0, 2e-4),
@@ -532,25 +678,38 @@ def main() -> int:
         require(torch.isfinite(got).all(), f"K2 {name}: non-finite output")
         require(err <= tol, f"K2 {name} disagrees: {err}")
         ms = graph_ms(run, 2, 3)
-        extra_ms[name] = ms
-        log(f"K2 {name}: {ms:.3f} ms (CUDA graph)")
+        bound_ms, bound_by, simt_ms = fixed_bound(hty_.numel(), *xt.shape[-2:], len(mats), 100, fast)
+        share = require_share(f"K2 {name}", ms, bound_ms)
+        extra_ms[name] = {"ms": ms, "bound_ms": bound_ms, "bound_f32_simt_ms": simt_ms}
+        log(f"K2 {name}: {ms:.3f} ms (CUDA graph), bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{share:.1%} of it), f32 SIMT bound {simt_ms:.4f} ms")
         if name == "sample":
-            k2_flagship = (err, ms, graph_ms(plain, 1, 3), hty_.numel(), len(mats))
-    err, k2_ms, k2_plain_ms, numel, n_mats = k2_flagship
-    h = w = 256
-    planes = numel // (h * w)
-    products = 2 if n_mats == 2 else 4  # per transform
-    flops = 100 * (2 * products * planes * 2 * h * h * w + CHAIN_FLOPS_PER_PIXEL * numel)
-    k2_bytes = 2 * numel * 4 + h * w * 4 + n_mats * h * h * 4
+            k2_flagship = (err, ms, graph_ms(plain, 1, 3), bound_ms, bound_by, simt_ms)
+            k2_calls = {depth: (lambda depth=depth: vmem_solver._WholeSolve.apply(
+                hty_, freq, rho_t, tau_t, mode, depth, 0, None, *mats)) for depth in (10, 100)}
+    err, k2_ms, k2_plain_ms, bound_ms, bound_by, simt_ms = k2_flagship
+
+    # launches per solve: K2 at the flagship shape, K3 at the phase-7 shape
+    xt3 = torch.from_numpy(noisy_tile[None]).to(dev)
+
+    def k3_call(depth):
+        cfg = vmem_solver.adaptive_config(xt3.shape, True, "sample", depth, 0.0, 10.0, 2.0,
+                                          "high", None, False)
+        inputs = vmem_solver.adaptive_inputs(xt3, 0.05, 0.8, None, cfg.g)
+        return lambda: vmem_solver._AdaptiveSolve.apply(*inputs[:4], cfg, *inputs[4])
+
+    per_solve_calls = {
+        "K2 (1, 3, 256, 256) sample": k2_calls,
+        "K3 (1, 3, 256, 256) sample tol 0": {depth: k3_call(depth) for depth in (20, 60)},
+    }
     k2 = {"name": "admm_tv_vmem", "route": "cuda",
           "source": "torch_admm_deconv_tpu_torch/csrc/vmem_solver.cu",
           "replaces": "torch_admm_deconv_tpu/kernels/vmem_solver.py:213",
           "max_abs_err": err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-          "bound_ms": max(k2_bytes / PEAK_BYTES, flops / PEAK_F32_FLOPS) * 1e3,
-          "bound_by": "operations" if flops / PEAK_F32_FLOPS >= k2_bytes / PEAK_BYTES else "bytes",
+          "bound_ms": bound_ms, "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
           "library_ms": None}
     log(f"K2 flagship (1, 3, 256, 256) sample x100: {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
-        f"bound {k2['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP)")
+        f"bound {bound_ms:.4f} ms, f32 SIMT bound {simt_ms:.4f} ms")
 
     # -- the main path: counts set to 0 just before, read just after ----------
     fused_admm.LAUNCHES.reset()
@@ -667,6 +826,10 @@ def main() -> int:
     k4["launches"] = vmem_solver.INTERLEAVED_LAUNCHES.n
     for entry in (k3, k4):
         require(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
+    # device operations per K2 and K3 solve, last: the timed phases run
+    # before any profiler session
+    k2["device_ops_per_solve"], k3["device_ops_per_solve"] = launches_per_solve(
+        per_solve_calls).values()
     log(json.dumps({"k3_cases": k3_cases, "k4_cases": k4_cases, "classical": classical,
                     "training": training}))
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))

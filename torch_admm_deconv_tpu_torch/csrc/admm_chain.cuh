@@ -14,6 +14,11 @@
 // pixel recomputes the two neighbours' shrinkage instead of staging a tile
 // with a halo in shared memory: the chain is bound by memory bytes, the
 // recomputed reads hit L1/L2, and the plane wraps circularly for free.
+//
+// The per-pixel helpers take plain pointers, not __restrict__ ones: the
+// persistent whole-solve kernels inline them and write the same buffers in
+// other stages of one launch, so their loads must not take the
+// non-coherent read-only path.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,9 +30,8 @@ constexpr float kEps = 1e-15f;
 enum Mode : int { kAniso = 0, kSample = 1, kJoint = 2 };
 
 // d = D x and a = d + u at (i, j) of one plane
-__device__ __forceinline__ void grad_plus_dual(const float* __restrict__ x,
-                                               const float* __restrict__ ux,
-                                               const float* __restrict__ uy,
+__device__ __forceinline__ void grad_plus_dual(const float* x, const float* ux,
+                                               const float* uy,
                                                int i, int j, int h, int w,
                                                float& dx, float& dy,
                                                float& ax, float& ay) {
@@ -45,9 +49,7 @@ __device__ __forceinline__ void grad_plus_dual(const float* __restrict__ x,
 // a = D x + u; `group` is the first plane of the g planes whose norm
 // couples in 'sample' mode.
 template <int MODE>
-__device__ __forceinline__ void shrink_at(const float* __restrict__ x,
-                                          const float* __restrict__ ux,
-                                          const float* __restrict__ uy,
+__device__ __forceinline__ void shrink_at(const float* x, const float* ux, const float* uy,
                                           long plane, long group, int g, int i,
                                           int j, int h, int w, float tau,
                                           float& dx, float& dy, float& ax,
@@ -81,9 +83,7 @@ __device__ __forceinline__ void shrink_at(const float* __restrict__ x,
 
 // t = z - u' and u' = a - z at (i, j) of plane `plane`.
 template <int MODE>
-__device__ __forceinline__ void chain_at(const float* __restrict__ x,
-                                         const float* __restrict__ ux,
-                                         const float* __restrict__ uy,
+__device__ __forceinline__ void chain_at(const float* x, const float* ux, const float* uy,
                                          long plane, long group, int g, int i,
                                          int j, int h, int w, float tau,
                                          float& tx, float& ty, float& uxn,
@@ -94,6 +94,28 @@ __device__ __forceinline__ void chain_at(const float* __restrict__ x,
   uyn = ay - zy;
   tx = zx - uxn;
   ty = zy - uyn;
+}
+
+// The chain at pixel `idx` of plane p: s, u'_x, u'_y from x and u, not
+// stored, so that a caller can issue the loads of several pixels before
+// their stores.
+template <int MODE>
+__device__ __forceinline__ void chain_eval(const float* x, const float* ux, const float* uy,
+                                           const float* hty, float rho, float tau, int p, int g,
+                                           int h, int w, long idx, float& s, float& uxn,
+                                           float& uyn) {
+  const long hw = (long)h * w;
+  const int i = (int)(idx / w);
+  const int j = (int)(idx % w);
+  const int jr = j == w - 1 ? 0 : j + 1;
+  const int id = i == h - 1 ? 0 : i + 1;
+  const long plane = (long)p * hw;
+  const long group = (long)(p / g) * g * hw;
+  float tx, ty, txr, tyd, unused0, unused1, unused2;
+  chain_at<MODE>(x, ux, uy, plane, group, g, i, j, h, w, tau, tx, ty, uxn, uyn);
+  chain_at<MODE>(x, ux, uy, plane, group, g, i, jr, h, w, tau, txr, unused0, unused1, unused2);
+  chain_at<MODE>(x, ux, uy, plane, group, g, id, j, h, w, tau, unused0, tyd, unused1, unused2);
+  s = hty[plane + idx] + rho * (tx - txr + ty - tyd);
 }
 
 // One pass of the chain over n_planes planes of h x w, in groups of g.
@@ -111,22 +133,13 @@ chain_kernel(const float* __restrict__ x, const float* __restrict__ ux,
   if (idx >= hw) return;
   const float rho = rho_tau[0];
   const float tau = rho_tau[1];
-  const int i = (int)(idx / w);
-  const int j = (int)(idx % w);
-  const int jr = j == w - 1 ? 0 : j + 1;
-  const int id = i == h - 1 ? 0 : i + 1;
   for (int p = blockIdx.y; p < n_planes; p += gridDim.y) {
-    const long plane = (long)p * hw;
-    const long group = (long)(p / g) * g * hw;
-    float tx, ty, uxn, uyn, txr, tyd, unused0, unused1, unused2;
-    chain_at<MODE>(x, ux, uy, plane, group, g, i, j, h, w, tau, tx, ty, uxn, uyn);
-    chain_at<MODE>(x, ux, uy, plane, group, g, i, jr, h, w, tau, txr, unused0,
-                   unused1, unused2);
-    chain_at<MODE>(x, ux, uy, plane, group, g, id, j, h, w, tau, unused0, tyd,
-                   unused1, unused2);
-    s[plane + idx] = hty[plane + idx] + rho * (tx - txr + ty - tyd);
-    uxo[plane + idx] = uxn;
-    uyo[plane + idx] = uyn;
+    float sv, uxn, uyn;
+    chain_eval<MODE>(x, ux, uy, hty, rho, tau, p, g, h, w, idx, sv, uxn, uyn);
+    const long at = (long)p * hw + idx;
+    s[at] = sv;
+    uxo[at] = uxn;
+    uyo[at] = uyn;
   }
 }
 

@@ -13,7 +13,8 @@
 //
 // T is the separable cas transform T_h v T_w (2 products) when the PSF is
 // absent or axis-symmetric, else the 2-D Hartley pair
-// (T_h v) C_w + (T_h' v) S_w (4 products); the products are tiled_gemm.cuh's.
+// (T_h v) C_w + (T_h' v) S_w (4 products); the products are tiled_gemm.cuh's
+// tensor-core tiles (3xTF32 exact, one bf16 pass in the fast phase).
 // K2's stage order follows the TPU kernel's `apply`: right (W-side) stage
 // over all planes, then the per-plane left (H-side) stage on the cas path;
 // both left stages, then the summed right stage on the Hartley path. The
@@ -22,28 +23,28 @@
 //
 // Bound on the H100: operations. At (1, 3, 256, 256) and 100 iterations the
 // cas path does 4 products of 2*256^3 flops per plane per iteration, about
-// 40 GFLOP a solve, on ~5 MB of state. A TPU block keeps its state in VMEM;
-// a 256^2 f32 plane (256 KB) exceeds a block's 227 KB of shared memory, so
-// here the state (s, u, y, t, hty, ~5 MB at the flagship shape) and the
-// matrices (0.5 MB) stay in the 50 MB L2 between launches instead. The loop
-// runs on the host and launches, per iteration, 4 (or 6) tiled f32 SIMT
-// matrix-product kernels and one chain kernel on the caller's stream; the
-// product tiles shrink when the grid would leave SMs idle.
-// 'high' is plain f32, at least as accurate as the TPU's bf16x3 split.
-// 'mixed' runs its first fast_iters iterations with every stage operand and
-// matrix rounded to bf16 (round to nearest even) and f32 accumulation, as
-// the TPU kernel's single-pass bf16 phase does.
+// 40 GFLOP a solve (x3 as 3xTF32 tensor-core passes) on ~5 MB of state. A
+// TPU block keeps its state in VMEM; a 256^2 f32 plane (256 KB) exceeds a
+// block's 227 KB of shared memory, so here the state (s, u, y, a, hty) and
+// the matrices stay in the 50 MB L2 instead. K2 is one cooperative launch
+// per solve: a CTA per resident slot walks the tiles of each product stage
+// and the pixels of the chain stage, and a grid barrier (which also orders
+// the memory: the chain reads neighbours other CTAs wrote) separates the 5
+// stages of an iteration, so no host loop and no launch gaps remain. The
+// matrices are split into their tf32 halves once, in the launch's prologue.
+// The product tiles shrink to 32 x 32 when 64 x 64 would leave SMs idle.
+// u is double-buffered because neighbours read it.
 //
 // K4: on the TPU the interleaved schedule completes one plane's iteration
 // before the next so that one plane's matrix-unit work overlaps another's
 // vector tail. Its Hopper counterpart keeps K2's math with the TPU
 // interleaved kernel's transform order (left stage first, _make_xform) and
 // runs each packed group of planes (the TPU kernel's grid program) as its
-// own sequence of product and chain launches on its own stream, so that one
-// group's chain overlaps another's products. The streams wait on an event
-// of the caller's stream at the start and the caller's stream waits on each
-// of them at the end. Same bound as K2; at 256^2 the products are short and
-// the solve is bound by launches.
+// own sequence of product-tile and chain launches on its own stream, so that
+// one group's chain overlaps another's products. The streams wait on an
+// event of the caller's stream at the start and the caller's stream waits
+// on each of them at the end. Same bound as K2; at 256^2 the products are
+// short and the solve is bound by launches.
 //
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
 
@@ -54,100 +55,195 @@
 
 namespace {
 
-using tiled::kNoSpectrum;
-using tiled::Problem;
-using tiled::Spectrum;
+using tiled::Gemm;
+using tiled::Mats;
 
-Spectrum fixed_spectrum(const float* freq, int rows) {
-  Spectrum sp = kNoSpectrum;
-  sp.spec = freq;
-  sp.rows = rows;
-  return sp;
-}
-
-// dst = T(src) (* mult): one full transform over all planes, K2's order.
-template <int ROUND>
-cudaError_t apply_right(const Problem& p, const float* src, float* dst, const float* mult) {
-  const long hw = (long)p.h * p.w;
-  const Spectrum sp = fixed_spectrum(mult, p.h);
-  cudaError_t err;
-  if (p.n_mats == 2) {
-    // right stage over the (planes*h, w) block, then the per-plane left stage
-    err = tiled::gemm<ROUND>(src, p.mats[1], nullptr, nullptr, p.a, p.planes * p.h, p.w, p.w,
-                             0, 0, 0, 1, kNoSpectrum, p.stream);
-    if (err != cudaSuccess) return err;
-    return tiled::gemm<ROUND>(p.mats[0], p.a, nullptr, nullptr, dst, p.h, p.w, p.h, 0, hw, hw,
-                              p.planes, sp, p.stream);
-  }
-  // both per-plane left stages, then one summed right stage
-  err = tiled::gemm<ROUND>(p.mats[0], src, nullptr, nullptr, p.d, p.h, p.w, p.h, 0, hw, hw,
-                           p.planes, kNoSpectrum, p.stream);
-  if (err != cudaSuccess) return err;
-  err = tiled::gemm<ROUND>(p.mats[1], src, nullptr, nullptr, p.a, p.h, p.w, p.h, 0, hw, hw,
-                           p.planes, kNoSpectrum, p.stream);
-  if (err != cudaSuccess) return err;
-  return tiled::gemm<ROUND>(p.d, p.mats[2], p.a, p.mats[3], dst, p.planes * p.h, p.w, p.w, 0,
-                            0, 0, 1, sp, p.stream);
-}
-
-template <int ROUND>
-cudaError_t x_update(const Problem& p, const float* s, const float* freq, float* y,
-                     float* x, bool left_first) {
-  cudaError_t err;
-  if (left_first) {
-    err = tiled::apply_left<ROUND>(p, s, y, fixed_spectrum(freq, p.h));
-    if (err != cudaSuccess) return err;
-    return tiled::apply_left<ROUND>(p, y, x, kNoSpectrum);
-  }
-  err = apply_right<ROUND>(p, s, y, freq);
-  if (err != cudaSuccess) return err;
-  return apply_right<ROUND>(p, y, x, nullptr);
-}
-
-// The planes [first, first + p.planes) of one solve: its buffers and stream.
-struct Group {
-  Problem p;
+struct Fixed {
+  Mats mats;
+  // the 4 product stages of an iteration: T1 (s -> y, * freq), T2 (y -> x);
+  // stage 1 of T1 reads hty in the first iteration, s after
+  Gemm t1a[2][2], t1b, t2a[2], t2b;
+  int n_a;  // jobs in a transform's first stage
   const float* hty;
-  float *out, *s, *ux0, *ux1, *uy0, *uy1, *y;
-  int g;
+  const float* rho_tau;
+  float *out, *s, *ux[2], *uy[2];
+  unsigned long long* stage_ns;  // K2_STAGES slots, or null
+  int planes, g, h, w, mode, maxit, fast_iters;
 };
 
-Group group_at(const Problem& whole, int first, int planes, int g, const float* hty,
-               float* out, float* s, float* ux0, float* ux1, float* uy0, float* uy1,
-               float* y, cudaStream_t stream) {
-  const long off = (long)first * whole.h * whole.w;
-  Group gr;
-  gr.p = whole;
-  gr.p.planes = planes;
-  gr.p.a = whole.a + off;
-  gr.p.d = whole.d != nullptr ? whole.d + off : nullptr;
-  gr.p.stream = stream;
-  gr.hty = hty + off;
-  gr.out = out + off;
-  gr.s = s + off;
-  gr.ux0 = ux0 + off;
-  gr.ux1 = ux1 + off;
-  gr.uy0 = uy0 + off;
-  gr.uy1 = uy1 + off;
-  gr.y = y + off;
-  gr.g = g;
-  return gr;
+// stage_ns slots: prologue, the 4 product stages, the chain
+constexpr int K2_STAGES = 6;
+
+// dst = T(src) (* mult) in K2's order; returns the jobs of its first stage.
+int right_first_stages(const Mats& mats, int planes, int h, int w, const float* src, float* dst,
+                       const float* mult, float* a, float* d, Gemm* first, Gemm* last) {
+  const long hw = (long)h * w;
+  if (mats.n == 2) {
+    // right stage over the (planes*h, w) block, then the per-plane left stage
+    first[0] = Gemm{tiled::Operand{src, nullptr, nullptr, 0}, tiled::matrix(mats, 1),
+                    tiled::kNone, tiled::kNone, a, 0, planes * h, w, w, 1, nullptr, 1, nullptr};
+    *last = Gemm{tiled::matrix(mats, 0), tiled::planes_of(a, hw), tiled::kNone, tiled::kNone,
+                 dst, hw, h, w, h, planes, mult, h, nullptr};
+    return 1;
+  }
+  // both per-plane left stages, then one summed right stage
+  first[0] = Gemm{tiled::matrix(mats, 0), tiled::planes_of(src, hw), tiled::kNone, tiled::kNone,
+                  d, hw, h, w, h, planes, nullptr, 1, nullptr};
+  first[1] = Gemm{tiled::matrix(mats, 1), tiled::planes_of(src, hw), tiled::kNone, tiled::kNone,
+                  a, hw, h, w, h, planes, nullptr, 1, nullptr};
+  *last = Gemm{tiled::Operand{d, nullptr, nullptr, 0}, tiled::matrix(mats, 2),
+               tiled::Operand{a, nullptr, nullptr, 0}, tiled::matrix(mats, 3), dst, 0,
+               planes * h, w, w, 1, mult, h, nullptr};
+  return 2;
 }
 
-// Iteration `it` of one group's solve.
-cudaError_t iterate(const Group& gr, const float* freq, const float* rho_tau, int mode,
-                    int it, int fast_iters, bool left_first) {
-  const float* s_in = it == 0 ? gr.hty : gr.s;  // x, z, u start at zero: RHS hty
-  cudaError_t err = it < fast_iters
-                        ? x_update<tiled::kFast>(gr.p, s_in, freq, gr.y, gr.out, left_first)
-                        : x_update<tiled::kExact>(gr.p, s_in, freq, gr.y, gr.out, left_first);
+template <int MODE>
+__device__ void chain_pass(const Fixed& p, int cur) {
+  // kUnroll pixels a thread: their loads issue before any of their stores
+  constexpr int kUnroll = 2;
+  const long hw = (long)p.h * p.w;
+  const long total = hw * p.planes;
+  const long stride = (long)gridDim.x * blockDim.x;
+  const float rho = p.rho_tau[0], tau = p.rho_tau[1];
+  const float *ux = p.ux[cur], *uy = p.uy[cur];
+  float *uxo = p.ux[cur ^ 1], *uyo = p.uy[cur ^ 1];
+  for (long at0 = (long)blockIdx.x * blockDim.x + threadIdx.x; at0 < total;
+       at0 += kUnroll * stride) {
+    float sv[kUnroll], uxv[kUnroll], uyv[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const long at = at0 + q * stride;
+      if (at < total) {
+        const int plane = (int)(at / hw);
+        admm::chain_eval<MODE>(p.out, ux, uy, p.hty, rho, tau, plane, p.g, p.h, p.w,
+                               at - plane * hw, sv[q], uxv[q], uyv[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const long at = at0 + q * stride;
+      if (at < total) {
+        p.s[at] = sv[q];
+        uxo[at] = uxv[q];
+        uyo[at] = uyv[q];
+      }
+    }
+  }
+}
+
+__device__ void chain_stage(const Fixed& p, int cur) {
+  switch (p.mode) {
+    case admm::kAniso:
+      chain_pass<admm::kAniso>(p, cur);
+      break;
+    case admm::kSample:
+      chain_pass<admm::kSample>(p, cur);
+      break;
+    default:
+      chain_pass<admm::kJoint>(p, cur);
+  }
+}
+
+// K2: the whole solve in one cooperative launch.
+template <class T>
+__global__ void __launch_bounds__(tiled::THREADS, tiled::MIN_CTAS)
+k2_persistent(const __grid_constant__ Fixed p) {
+  extern __shared__ float4 smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  tiled::StageClock clock(p.stage_ns);
+  const tiled::Blocks uniform{nullptr, 1};
+  tiled::split_matrices(p.mats);
+  const long total = (long)p.h * p.w * p.planes;
+  for (long at = (long)blockIdx.x * blockDim.x + threadIdx.x; at < total;
+       at += (long)gridDim.x * blockDim.x) {
+    p.ux[0][at] = 0.0f;
+    p.uy[0][at] = 0.0f;
+  }
+  grid.sync();
+  clock.mark(0);
+  for (int it = 0; it < p.maxit; ++it) {
+    const bool fast = it < p.fast_iters;
+    tiled::run_stage<T>(p.t1a[it == 0 ? 0 : 1], p.n_a, fast, uniform, smem);
+    grid.sync();
+    clock.mark(1);
+    tiled::run_stage<T>(&p.t1b, 1, fast, uniform, smem);
+    grid.sync();
+    clock.mark(2);
+    tiled::run_stage<T>(p.t2a, p.n_a, fast, uniform, smem);
+    grid.sync();
+    clock.mark(3);
+    tiled::run_stage<T>(&p.t2b, 1, fast, uniform, smem);
+    grid.sync();
+    clock.mark(4);
+    chain_stage(p, it & 1);
+    grid.sync();
+    clock.mark(5);
+  }
+}
+
+template <class T>
+cudaError_t launch_k2(const Fixed& p, cudaStream_t stream) {
+  return tiled::launch_cooperative(k2_persistent<T>, p, T::SMEM, stream);
+}
+
+// --- K4: the product tiles launched per stage ----------------------------------
+
+template <class T>
+__global__ void __launch_bounds__(tiled::THREADS, tiled::MIN_CTAS)
+gemm_kernel(const __grid_constant__ Gemm gm, int fast) {
+  extern __shared__ float4 smem_raw[];
+  const tiled::Blocks uniform{nullptr, 1};
+  tiled::run_stage<T>(&gm, 1, fast != 0, uniform, reinterpret_cast<float*>(smem_raw));
+}
+
+template <class T>
+cudaError_t launch_gemm(const Gemm& gm, bool fast, cudaStream_t stream) {
+  static std::once_flag once;
+  std::call_once(once, [] {
+    cudaFuncSetAttribute(gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)T::SMEM);
+  });
+  gemm_kernel<T><<<(unsigned)T::count(gm), tiled::THREADS, T::SMEM, stream>>>(gm, fast);
+  return cudaGetLastError();
+}
+
+cudaError_t gemm(const Gemm& gm, bool fast, bool big, cudaStream_t stream) {
+  return big ? launch_gemm<tiled::BigTile>(gm, fast, stream)
+             : launch_gemm<tiled::SmallTile>(gm, fast, stream);
+}
+
+__global__ void split_kernel(const __grid_constant__ Mats mats) { tiled::split_matrices(mats); }
+
+// The planes [first, first + planes) of one K4 solve: its buffers and stream.
+struct Group {
+  Mats mats;
+  int planes, h, w;
+  const float* hty;
+  float *out, *s, *ux[2], *uy[2], *y, *a, *d;
+  cudaStream_t stream;
+};
+
+// Iteration `it` of one group's solve: x = T(T(s) * freq) left stage first,
+// then the chain.
+cudaError_t iterate(const Group& gr, const float* freq, const float* rho_tau, int mode, int it,
+                    int fast_iters, bool big) {
+  const bool fast = it < fast_iters;
+  const float* src = it == 0 ? gr.hty : gr.s;  // x, z, u start at zero: RHS hty
+  Gemm first[2], last;
+  cudaError_t err = cudaSuccess;
+  for (int t = 0; t < 2 && err == cudaSuccess; ++t) {
+    const int n = tiled::left_first_stages(gr.mats, gr.planes, gr.h, gr.w, t == 0 ? src : gr.y,
+                                           t == 0 ? gr.y : gr.out, gr.a, gr.d,
+                                           t == 0 ? freq : nullptr, nullptr, first, &last);
+    for (int j = 0; j < n && err == cudaSuccess; ++j) err = gemm(first[j], fast, big, gr.stream);
+    if (err == cudaSuccess) err = gemm(last, fast, big, gr.stream);
+  }
   if (err != cudaSuccess) return err;
-  float* ux[2] = {gr.ux0, gr.ux1};
-  float* uy[2] = {gr.uy0, gr.uy1};
   const int cur = it & 1;
-  return admm::launch_chain(mode, gr.out, ux[cur], uy[cur], gr.hty, rho_tau, gr.s,
-                            ux[cur ^ 1], uy[cur ^ 1], gr.p.planes, gr.g, gr.p.h, gr.p.w,
-                            gr.p.stream);
+  return admm::launch_chain(mode, gr.out, gr.ux[cur], gr.uy[cur], gr.hty, rho_tau, gr.s,
+                            gr.ux[cur ^ 1], gr.uy[cur ^ 1], gr.planes, 1, gr.h, gr.w,
+                            gr.stream);
 }
 
 constexpr int kStreams = 8;  // groups beyond this many share streams
@@ -168,49 +264,75 @@ cudaStream_t* stream_pool() {
 
 }  // namespace
 
+// Floats of the matrices' tf32 halves a solve needs in `split`.
+extern "C" long admm_tv_vmem_split_floats(int h, int w) { return 4L * ((long)h * h + (long)w * w); }
+
 // hty, out and the scratch planes s, ux0, ux1, uy0, uy1, y, a are
 // (n_planes, h, w) f32; d only on the Hartley-pair path (n_mats == 4),
 // else null. freq is (h, w) and carries 1/(h*w). rho_tau = {rho, tau}.
+// split holds admm_tv_vmem_split_floats(h, w) floats. stage_ns: null, or 6
+// zeroed counters that receive the device nanoseconds of the prologue, the
+// four product stages and the chain, summed over the iterations.
 extern "C" int admm_tv_vmem_solve(const float* hty, const float* freq, const float* m0,
                                   const float* m1, const float* m2, const float* m3,
                                   int n_mats, const float* rho_tau, float* out, float* s,
                                   float* ux0, float* ux1, float* uy0, float* uy1,
-                                  float* y, float* a, float* d, int n_planes, int g,
-                                  int h, int w, int mode, int maxit, int fast_iters,
+                                  float* y, float* a, float* d, float* split,
+                                  unsigned long long* stage_ns, int n_planes,
+                                  int g, int h, int w, int mode, int maxit, int fast_iters,
                                   void* stream_handle) {
   cudaStream_t stream = (cudaStream_t)stream_handle;
-  const size_t bytes = (size_t)n_planes * h * w * sizeof(float);
   if (n_mats != 2 && n_mats != 4) return (int)cudaErrorInvalidValue;
+  if (mode != admm::kAniso && mode != admm::kSample && mode != admm::kJoint)
+    return (int)cudaErrorInvalidValue;
   if (maxit <= 0) {
-    cudaMemsetAsync(out, 0, bytes, stream);
+    cudaMemsetAsync(out, 0, (size_t)n_planes * h * w * sizeof(float), stream);
     return (int)cudaGetLastError();
   }
-  Problem whole{{m0, m1, m2, m3}, n_mats, n_planes, h, w, d, a, stream};
-  cudaMemsetAsync(ux0, 0, bytes, stream);
-  cudaMemsetAsync(uy0, 0, bytes, stream);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const Group gr = group_at(whole, 0, n_planes, g, hty, out, s, ux0, ux1, uy0, uy1, y, stream);
-  for (int it = 0; it < maxit; ++it) {
-    err = iterate(gr, freq, rho_tau, mode, it, fast_iters, false);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  const float* m[4] = {m0, m1, m2, m3};
+  Fixed p{};
+  p.mats = tiled::make_mats(m, n_mats, h, w, split);
+  for (int first = 0; first < 2; ++first)
+    p.n_a = right_first_stages(p.mats, n_planes, h, w, first == 0 ? hty : s, y, freq, a, d,
+                               p.t1a[first], &p.t1b);
+  right_first_stages(p.mats, n_planes, h, w, y, out, nullptr, a, d, p.t2a, &p.t2b);
+  p.hty = hty;
+  p.rho_tau = rho_tau;
+  p.out = out;
+  p.s = s;
+  p.ux[0] = ux0;
+  p.ux[1] = ux1;
+  p.uy[0] = uy0;
+  p.uy[1] = uy1;
+  p.stage_ns = stage_ns;
+  p.planes = n_planes;
+  p.g = g;
+  p.h = h;
+  p.w = w;
+  p.mode = mode;
+  p.maxit = maxit;
+  p.fast_iters = fast_iters;
+  const cudaError_t err = tiled::big_tiles(n_planes, h, w) ? launch_k2<tiled::BigTile>(p, stream)
+                                                           : launch_k2<tiled::SmallTile>(p, stream);
+  return (int)err;
 }
 
-// K4: the same buffers as admm_tv_vmem_solve; the planes run in groups of
+// K4: the same arguments as admm_tv_vmem_solve; the planes run in groups of
 // `pack` (a divisor of n_planes), each group on a stream of its own. Modes:
-// aniso and 'joint' (per-plane shrinkage) only.
+// aniso and 'joint' (per-plane shrinkage) only. K4 keeps no stage clock:
+// stage_ns must be null.
 extern "C" int admm_tv_vmem_interleaved(const float* hty, const float* freq, const float* m0,
                                         const float* m1, const float* m2, const float* m3,
                                         int n_mats, const float* rho_tau, float* out,
                                         float* s, float* ux0, float* ux1, float* uy0,
-                                        float* uy1, float* y, float* a, float* d,
-                                        int n_planes, int pack, int h, int w, int mode,
-                                        int maxit, int fast_iters, void* stream_handle) {
+                                        float* uy1, float* y, float* a, float* d, float* split,
+                                        unsigned long long* stage_ns, int n_planes, int pack,
+                                        int h, int w, int mode, int maxit, int fast_iters,
+                                        void* stream_handle) {
   cudaStream_t caller = (cudaStream_t)stream_handle;
   const size_t bytes = (size_t)n_planes * h * w * sizeof(float);
   if (n_mats != 2 && n_mats != 4) return (int)cudaErrorInvalidValue;
+  if (stage_ns != nullptr) return (int)cudaErrorInvalidValue;
   if (mode == admm::kSample || pack <= 0 || n_planes % pack != 0)
     return (int)cudaErrorInvalidValue;
   if (maxit <= 0) {
@@ -219,6 +341,9 @@ extern "C" int admm_tv_vmem_interleaved(const float* hty, const float* freq, con
   }
   cudaMemsetAsync(ux0, 0, bytes, caller);
   cudaMemsetAsync(uy0, 0, bytes, caller);
+  const float* m[4] = {m0, m1, m2, m3};
+  const Mats mats = tiled::make_mats(m, n_mats, h, w, split);
+  split_kernel<<<64, 256, 0, caller>>>(mats);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -231,15 +356,17 @@ extern "C" int admm_tv_vmem_interleaved(const float* hty, const float* freq, con
   cudaEventRecord(start, caller);
   for (int i = 0; i < n_streams; ++i) cudaStreamWaitEvent(pool[i], start, 0);
 
-  const Problem whole{{m0, m1, m2, m3}, n_mats, n_planes, h, w, d, a, caller};
+  const bool big = tiled::big_tiles(pack, h, w);
   err = cudaGetLastError();
   // iteration-major launch order: the groups' launches interleave on the
   // host, so the card runs one group's chain beside another's products
   for (int it = 0; it < maxit && err == cudaSuccess; ++it) {
     for (int k = 0; k < n_groups && err == cudaSuccess; ++k) {
-      const Group gr = group_at(whole, k * pack, pack, 1, hty, out, s, ux0, ux1, uy0, uy1,
-                                y, pool[k % n_streams]);
-      err = iterate(gr, freq, rho_tau, mode, it, fast_iters, true);
+      const long off = (long)k * pack * h * w;
+      const Group gr{mats, pack, h, w, hty + off, out + off, s + off,
+                     {ux0 + off, ux1 + off}, {uy0 + off, uy1 + off}, y + off, a + off,
+                     d != nullptr ? d + off : nullptr, pool[k % n_streams]};
+      err = iterate(gr, freq, rho_tau, mode, it, fast_iters, big);
     }
   }
   // join even after a failed launch, so the caller's stream never runs

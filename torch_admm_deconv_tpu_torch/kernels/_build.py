@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -111,6 +112,40 @@ class _Libraries:
 
 
 LIBRARIES = _Libraries()
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_kernels(log: str) -> list[dict]:
+    """Registers and spills of each kernel in an ``nvcc -Xptxas -v`` log:
+    ``[{"kernel", "registers", "spill_stores", "spill_loads"}]``, names
+    demangled with ``cu++filt`` where the toolkit has it."""
+    kernels, current = [], None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            current = {"kernel": m.group(1), "registers": None, "spill_stores": 0, "spill_loads": 0}
+            kernels.append(current)
+        elif current is not None and (m := _SPILL.search(line)):
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif current is not None and (m := _REGS.search(line)):
+            current["registers"] = int(m.group(1))
+    for k, name in zip(kernels, demangle([k["kernel"] for k in kernels])):
+        k["kernel"] = name
+    return kernels
+
+
+def demangle(names: list[str]) -> list[str]:
+    """C++ names of mangled kernel symbols, by the toolkit's ``cu++filt``
+    (the names as given where it is missing)."""
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not names or not os.path.exists(filt):
+        return names
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True).stdout
+    lines = out.splitlines()
+    return lines if len(lines) == len(names) else names
 
 
 def check(status: int, what: str) -> None:

@@ -22,10 +22,14 @@ returning the exit state for implicit differentiation.
 
 T is the separable cas transform (no PSF or an axis-symmetric one) or the
 2-D Hartley pair (any other real PSF), chosen by ``psf_is_axis_symmetric``.
-Each solve is one C call on the caller's stream. 'high' precision is
-float32 throughout; 'mixed' rounds every stage operand and matrix to bf16
-in the fast phase. A CUDA tensor launches the kernel; a CPU tensor runs the
-plain version beside it. Forward-only, as the TPU kernels are.
+Each solve is one C call on the caller's stream; K2 and K3 are one
+cooperative launch each, K3 with its stopping test on the card. On the
+card the products run on the tensor cores: 'high' as 3xTF32 (float32
+accuracy), the fast phase of 'mixed' as one bf16 pass on operands and
+matrices rounded to bf16. The plain versions compute the same products
+with ``torch.matmul`` in float32. A CUDA tensor launches the kernel; a CPU
+tensor runs the plain version beside it. Forward-only, as the TPU kernels
+are.
 """
 
 from __future__ import annotations
@@ -54,9 +58,6 @@ INTERLEAVED_LAUNCHES = LaunchCounter()  # K4
 ADAPTIVE_LAUNCHES = LaunchCounter()  # K3
 
 SCHEDULES = ("batched", "interleaved")
-# K3 launches iterations in chunks of this many and reads the count of
-# running blocks one chunk late
-POLL = 8
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,11 +65,14 @@ _F = ctypes.c_float
 
 
 def _fixed_lib(name: str):
-    fn = getattr(LIBRARIES.load("vmem_solver"), name)
+    lib = LIBRARIES.load("vmem_solver")
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 6 + [_I] + [_VP] * 10 + [_I] * 7 + [_VP]
+        fn.argtypes = [_VP] * 6 + [_I] + [_VP] * 12 + [_I] * 7 + [_VP]
         fn.restype = _I
-    return fn
+        lib.admm_tv_vmem_split_floats.argtypes = [_I] * 2
+        lib.admm_tv_vmem_split_floats.restype = ctypes.c_long
+    return lib, fn
 
 
 def _adaptive_lib():
@@ -76,8 +80,8 @@ def _adaptive_lib():
     fn = lib.admm_tv_adaptive_solve
     if fn.argtypes is None:
         fn.argtypes = (
-            [_VP] * 7 + [_I] + [_VP] * 12 + [_I] * 6
-            + [_F, _I, _F, _F, _I, _F, _I, _F, _I, _VP]
+            [_VP] * 7 + [_I] + [_VP] * 11 + [_I] * 6
+            + [_F, _I, _F, _F, _I, _F, _I, _F, _VP]
         )
         fn.restype = _I
         lib.admm_tv_adaptive_workspace.argtypes = [_I] * 3
@@ -163,8 +167,11 @@ def admm_tv_vmem_interleaved_plain(hty, freq_full, mats, rho, tau, mode, maxit: 
     return _fixed_plain(_xform, hty, freq_full, mats, rho, tau, mode, maxit, fast_iters)
 
 
-def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack):
-    """K2 (``pack`` None) or K4 (planes in groups of ``pack``)."""
+def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack, stage_ns=None):
+    """K2 (``pack`` None) or K4 (planes in groups of ``pack``). ``stage_ns``
+    (K2 only): None, or a CUDA int64 tensor of 6 zeros to which the solve
+    adds the device nanoseconds of its stages (prologue, 4 product stages,
+    chain) as the grid's first CTA sees them between grid barriers."""
     check_planes("admm_tv_vmem", hty)
     b, c, h, w = hty.shape
     if freq_full.shape != (h, w) or any(m.dtype != torch.float32 for m in mats):
@@ -172,19 +179,23 @@ def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack):
     general = len(mats) == 4
     out, s, ux0, ux1, uy0, uy1, y, a = (torch.empty_like(hty) for _ in range(8))
     d = torch.empty_like(hty) if general else None
+    name = "admm_tv_vmem_solve" if pack is None else "admm_tv_vmem_interleaved"
+    lib, fn = _fixed_lib(name)
+    # the matrices' tf32 halves, split once per solve
+    split = torch.empty(lib.admm_tv_vmem_split_floats(h, w), dtype=torch.float32, device=hty.device)
     m = list(mats) + [None] * (4 - len(mats))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     if pack is None:
-        name, group, counter = "admm_tv_vmem_solve", (c if mode == "sample" else 1), LAUNCHES
+        group, counter = (c if mode == "sample" else 1), LAUNCHES
     else:
-        name, group, counter = "admm_tv_vmem_interleaved", pack, INTERLEAVED_LAUNCHES
+        group, counter = pack, INTERLEAVED_LAUNCHES
     with torch.cuda.device(hty.device):
         stream = torch.cuda.current_stream(hty.device).cuda_stream
-        status = _fixed_lib(name)(
+        status = fn(
             hty.data_ptr(), freq_full.data_ptr(), *(ptr(t) for t in m), len(mats),
             rho_tau.data_ptr(), out.data_ptr(), s.data_ptr(), ux0.data_ptr(), ux1.data_ptr(),
-            uy0.data_ptr(), uy1.data_ptr(), y.data_ptr(), a.data_ptr(), ptr(d),
-            b * c, group, h, w, MODES[mode], maxit, fast_iters, stream,
+            uy0.data_ptr(), uy1.data_ptr(), y.data_ptr(), a.data_ptr(), ptr(d), split.data_ptr(),
+            ptr(stage_ns), b * c, group, h, w, MODES[mode], maxit, fast_iters, stream,
         )
     check(status, name)
     counter.add()
@@ -456,7 +467,11 @@ def admm_tv_adaptive_vmem_plain(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveCo
     return x, zx, zy, ux, uy, k, r, sd, rho
 
 
-def _launch_adaptive(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig):
+def _launch_adaptive(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig, stage_ns=None):
+    """K3. ``stage_ns``: None, or a CUDA int64 tensor of 8 zeros to which
+    the solve adds the device nanoseconds of its stages (prologue, 4 product
+    stages, residual, finalize, right-hand side) as the grid's first CTA
+    sees them between grid barriers."""
     check_planes("admm_tv_adaptive_vmem", hty)
     nb, g, h, w = hty.shape
     n_planes = nb * g
@@ -467,8 +482,6 @@ def _launch_adaptive(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig):
     x, zx, zy, ux, uy = (torch.empty_like(hty) for _ in range(5))
     work = torch.empty(lib.admm_tv_adaptive_workspace(n_planes, h, w), dtype=torch.float32, device=dev)
     state = torch.empty(2 * nb * 8, dtype=torch.int32, device=dev)  # 2 x n_blocks BlockStates
-    n_run = torch.empty(1, dtype=torch.int32, device=dev)
-    host_run = torch.empty(2, dtype=torch.int32, pin_memory=True)
     iters = torch.empty(nb, dtype=torch.int32, device=dev)
     stats = torch.empty(3, nb, dtype=torch.float32, device=dev)
     m = list(mats) + [None] * (4 - len(mats))
@@ -479,15 +492,14 @@ def _launch_adaptive(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig):
         status = lib.admm_tv_adaptive_solve(
             hty.data_ptr(), habs2.data_ptr(), d2.data_ptr(), *(ptr(t) for t in m), len(mats),
             lmbd_rho0.data_ptr(), x.data_ptr(), zx.data_ptr(), zy.data_ptr(), ux.data_ptr(),
-            uy.data_ptr(), work.data_ptr(), state.data_ptr(), n_run.data_ptr(),
-            host_run.data_ptr(), iters.data_ptr(), stats.data_ptr(),
-            n_planes, g, h, w, MODES[cfg.mode], cfg.maxit, cfg.tol, int(cfg.adapt),
+            uy.data_ptr(), work.data_ptr(), state.data_ptr(), iters.data_ptr(), stats.data_ptr(),
+            ptr(stage_ns), n_planes, g, h, w, MODES[cfg.mode], cfg.maxit, cfg.tol, int(cfg.adapt),
             cfg.rho_mu, cfg.rho_scale, int(cfg.use_fast),
-            cfg.fast_switch, cfg.fast_cap, scale, POLL, stream,
+            cfg.fast_switch, cfg.fast_cap, scale, stream,
         )
     check(status, "admm_tv_adaptive_solve")
     ADAPTIVE_LAUNCHES.add()
-    return (x, zx, zy, ux, uy, iters, *(v.clone() for v in stats))
+    return (x, zx, zy, ux, uy, iters, *stats.unbind(0))
 
 
 class _AdaptiveSolve(torch.autograd.Function):

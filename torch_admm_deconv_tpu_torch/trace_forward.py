@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 GROUPS = (
-    ("admm_kernels", re.compile(r"gemm_kernel|chain_kernel")),
+    ("admm_kernels", re.compile(r"k2_persistent|k3_persistent")),
     ("convolution", re.compile(r"conv|cudnn|xmma|implicit|winograd|fprop|wgrad|dgrad", re.I)),
     ("sort", re.compile(r"sort|radix", re.I)),
 )
