@@ -322,29 +322,37 @@ def k3_vs_plain(dev, tile, psfs):
 
 
 def k4_vs_plain_and_k2(dev, batch8, psfs):
-    """Phase 8: K4 against its plain version and against K2 at
-    (8, 3, 256, 256), 100 iterations, each timed beside K2."""
+    """Phase 8: K4 against its plain version and against K2: five cases at
+    (8, 3, 256, 256) x100, a ragged (2, 3, 250, 190) batch, a 512^2 plane
+    (its state in L2) and one iteration; each timed beside K2."""
     from torch_admm_deconv_tpu_torch.kernels import vmem_solver
 
-    xb = torch.from_numpy(batch8).to(dev)
+    local = np.random.default_rng(8)  # the extra shapes' images; rng stays as it was
+    ragged = np.stack([synthetic_image(local, 3, 250, 190) for _ in range(2)])
+    big = synthetic_image(local, 3, 512, 512)[None]
     cases = [
-        ("aniso", False, "joint", None, "high"),
-        ("joint", True, "joint", None, "high"),
-        ("aniso_motion9", False, "joint", "motion", "high"),
-        ("aniso_mixed", False, "joint", None, "mixed"),
-        ("joint_mixed", True, "joint", None, "mixed"),
+        # name, images, iso, psf, precision, maxit
+        ("aniso", batch8, False, None, "high", 100),
+        ("joint", batch8, True, None, "high", 100),
+        ("aniso_motion9", batch8, False, "motion", "high", 100),
+        ("aniso_mixed", batch8, False, None, "mixed", 100),
+        ("joint_mixed", batch8, True, None, "mixed", 100),
+        ("aniso_250x190", ragged, False, None, "high", 100),
+        ("aniso_512", big, False, None, "high", 100),
+        ("aniso_maxit1", batch8, False, None, "high", 1),
     ]
     out = {}
-    for name, iso, iso_mode, psf, precision in cases:
+    for name, images, iso, psf, precision, maxit in cases:
+        xb = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
         kern = None if psf is None else torch.from_numpy(psfs[psf]).to(dev)
         lmbd, rho = (0.05, 1.0) if psf is None else (0.01, 1.0)
         hty, freq, rho_t, tau_t, mats = vmem_solver.solve_inputs(xb, lmbd, rho, kern)
-        mode = iso_mode if iso else None
-        fast = vmem_solver.fast_iterations(precision, 0.75, 100)
-        pack = vmem_solver._fixed_pack(xb.shape, iso, iso_mode)
-        k4 = lambda: vmem_solver._WholeSolve.apply(hty, freq, rho_t, tau_t, mode, 100, fast, pack, *mats)  # noqa: E731, B023
-        k2 = lambda: vmem_solver._WholeSolve.apply(hty, freq, rho_t, tau_t, mode, 100, fast, None, *mats)  # noqa: E731, B023
-        plain = lambda: vmem_solver.admm_tv_vmem_interleaved_plain(hty, freq, mats, rho_t, tau_t, mode, 100, fast)  # noqa: E731, B023
+        mode = "joint" if iso else None
+        fast = vmem_solver.fast_iterations(precision, 0.75, maxit)
+        pack = vmem_solver._fixed_pack(xb.shape, iso, "joint")
+        k4 = lambda: vmem_solver._WholeSolve.apply(hty, freq, rho_t, tau_t, mode, maxit, fast, pack, *mats)  # noqa: E731, B023
+        k2 = lambda: vmem_solver._WholeSolve.apply(hty, freq, rho_t, tau_t, mode, maxit, fast, None, *mats)  # noqa: E731, B023
+        plain = lambda: vmem_solver.admm_tv_vmem_interleaved_plain(hty, freq, mats, rho_t, tau_t, mode, maxit, fast)  # noqa: E731, B023
         got, want, batched = k4(), plain(), k2()
         torch.cuda.synchronize()
         err, err_k2 = max_diff(got, want), max_diff(got, batched)
@@ -352,13 +360,13 @@ def k4_vs_plain_and_k2(dev, batch8, psfs):
         # JAX test's 2e-4 (tests/test_vmem_solver.py:170-198). In 'mixed' the
         # left-first transform rounds at other points than K2's: printed only
         x_tol = 2e-4 if precision == "high" else 2e-3
-        require(torch.isfinite(got).all(), f"K4 {name}: non-finite output")
+        require(got.shape == xb.shape and torch.isfinite(got).all(), f"K4 {name}: malformed output")
         require(err <= x_tol, f"K4 {name} disagrees with its plain version: {err}")
         if precision == "high":
             require(err_k2 <= 2e-4, f"K4 {name} disagrees with K2: {err_k2}")
         ms, k2_ms = cuda_ms(k4, 3), cuda_ms(k2, 3)
-        log(f"K4 {name} (8, 3, 256, 256) x100 pack {pack} ({len(mats)} matrices): max|diff| plain "
-            f"{err:.3e} (tol {x_tol}), K2 {err_k2:.3e}; K4 {ms:.3f} ms, K2 {k2_ms:.3f} ms "
+        log(f"K4 {name} {tuple(xb.shape)} x{maxit} pack {pack} ({len(mats)} matrices): max|diff| "
+            f"plain {err:.3e} (tol {x_tol}), K2 {err_k2:.3e}; K4 {ms:.3f} ms, K2 {k2_ms:.3f} ms "
             f"(CUDA events)")
         out[name] = {"ms": ms, "k2_ms": k2_ms, "max_abs_err": err, "err_vs_k2": err_k2}
         if name == "aniso":
@@ -368,12 +376,14 @@ def k4_vs_plain_and_k2(dev, batch8, psfs):
                 f"bound {simt_ms:.4f} ms")
             out["entry"] = {
                 "name": "admm_tv_vmem_interleaved", "route": "cuda",
-                "source": "torch_admm_deconv_tpu_torch/csrc/vmem_solver.cu",
+                "source": "torch_admm_deconv_tpu_torch/csrc/vmem_interleaved.cu",
                 "replaces": "torch_admm_deconv_tpu/kernels/vmem_solver.py:134",
                 "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(plain, 1),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
                 "library_ms": None}
             out["k2_out"] = batched
+            out["k4_calls"] = {depth: (lambda depth=depth: vmem_solver._WholeSolve.apply(  # noqa: B023
+                hty, freq, rho_t, tau_t, mode, depth, 0, pack, *mats)) for depth in (10, 100)}
     return out
 
 
@@ -594,6 +604,7 @@ def main() -> int:
     LIBRARIES.load("fused_admm")
     LIBRARIES.load("vmem_solver")
     LIBRARIES.load("vmem_adaptive")
+    LIBRARIES.load("vmem_interleaved")
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {LIBRARIES.build_seconds} s)")
     if LIBRARIES.ptxas_log:
         kernels = ptxas_kernels(LIBRARIES.ptxas_log)
@@ -603,8 +614,9 @@ def main() -> int:
         spills = sum(k["spill_stores"] for k in kernels)
         log(f"ptxas: {len(kernels)} kernels, max {max(k['registers'] for k in kernels)} "
             f"registers/thread, {spills} bytes spilled")
-    # K2 and K3 compute their products on the tensor cores
-    for lib, kernel in (("vmem_solver", "k2_persistent"), ("vmem_adaptive", "k3_persistent")):
+    # K2, K3 and K4 compute their products on the tensor cores
+    for lib, kernel in (("vmem_solver", "k2_persistent"), ("vmem_adaptive", "k3_persistent"),
+                        ("vmem_interleaved", "k4_persistent")):
         counts = {n: c for n, c in tensor_core_instructions(built / f"lib{lib}.so").items()
                   if kernel in n}
         for n, c in counts.items():
@@ -616,12 +628,22 @@ def main() -> int:
     # same float32 chain, different association and FMA contraction: 1e-5
     k1_tol = 1e-5
     k1_flagship = None
-    for shape in ((1, 3, 256, 256), (2, 3, 250, 190)):
+    # the flagship tile, a ragged 250 x 190 batch, a plane smaller than one
+    # tile and an odd W; rho and tau as numbers, as tensors on the card (tau
+    # < 0 runs as 0) and as CPU tensors, one of them float64, which the
+    # wrapper copies to the card as float32 before the launch
+    scalars = ((0.7, 0.15), (torch.tensor(0.7, device=dev), torch.tensor(-0.1, device=dev)),
+               (torch.tensor(0.7, dtype=torch.float64), torch.tensor(0.15)))
+    for shape in ((1, 3, 256, 256), (2, 3, 250, 190), (1, 3, 5, 7), (2, 3, 9, 13)):
         for iso, mode in ((False, "joint"), (True, "sample"), (True, "joint")):
             x, ux, uy, hty = (torch.randn(shape, device=dev) for _ in range(4))
-            got = fused_admm.fused_elementwise_step(x, ux, uy, hty, 0.7, 0.15, iso, mode)
-            want = _elementwise_step(x, ux, uy, hty, 0.7, 0.15, iso, mode)
-            err = max(max_diff(got[i], want[i]) for i in (0, 3, 4))
+            err = 0.0
+            for rho, tau in scalars:
+                got = fused_admm.fused_elementwise_step(x, ux, uy, hty, rho, tau, iso, mode)
+                rho_c = torch.as_tensor(rho, dtype=torch.float32, device=dev)
+                tau_c = torch.clamp_min(torch.as_tensor(tau, dtype=torch.float32, device=dev), 0.0)
+                want = _elementwise_step(x, ux, uy, hty, rho_c, tau_c, iso, mode)
+                err = max(err, *(max_diff(got[i], want[i]) for i in (0, 3, 4)))
             name = mode if iso else "aniso"
             log(f"K1 {name} {shape}: max|diff| {err:.3e} (tol {k1_tol})")
             require(err <= k1_tol, f"K1 {name} {shape} disagrees: {err}")
@@ -637,12 +659,12 @@ def main() -> int:
     k1 = {"name": "fused_elementwise_step", "route": "cuda",
           "source": "torch_admm_deconv_tpu_torch/csrc/fused_admm.cu",
           "replaces": "torch_admm_deconv_tpu/kernels/fused_admm.py:42",
-          "max_abs_err": err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+          "max_abs_err": err, "ms": k1_ms, "eager_ms": k1_call_ms, "plain_ms": k1_plain_ms,
           "bound_ms": max(k1_bytes / PEAK_BYTES, k1_ops / PEAK_F32_FLOPS) * 1e3,
           "bound_by": "bytes" if k1_bytes / PEAK_BYTES >= k1_ops / PEAK_F32_FLOPS else "operations",
           "library_ms": None}
     log(f"K1 (1, 3, 256, 256) sample: {k1_ms:.4f} ms (CUDA graph), plain {k1_plain_ms:.4f} ms, "
-        f"bound {k1['bound_ms']:.4f} ms; eager call incl. Python {k1_call_ms:.4f} ms")
+        f"bound {k1['bound_ms']:.4f} ms; eager call incl. Python {k1_call_ms:.4f} ms (CUDA events)")
 
     # -- phase 3: K2 against its plain version -------------------------------
     tile = synthetic_image(rng, 3, 256, 256)
@@ -803,6 +825,7 @@ def main() -> int:
     k4_cases = k4_vs_plain_and_k2(dev, batch8, psfs)
     k4 = k4_cases.pop("entry")
     k2_batch8 = k4_cases.pop("k2_out")
+    per_solve_calls["K4 (8, 3, 256, 256) aniso"] = k4_cases.pop("k4_calls")
 
     # -- the second main path: counts set to 0 just before, read just after --
     for counter in (fused_admm.LAUNCHES, vmem_solver.LAUNCHES, vmem_solver.INTERLEAVED_LAUNCHES,
@@ -826,10 +849,10 @@ def main() -> int:
     k4["launches"] = vmem_solver.INTERLEAVED_LAUNCHES.n
     for entry in (k3, k4):
         require(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
-    # device operations per K2 and K3 solve, last: the timed phases run
+    # device operations per K2, K3 and K4 solve, last: the timed phases run
     # before any profiler session
-    k2["device_ops_per_solve"], k3["device_ops_per_solve"] = launches_per_solve(
-        per_solve_calls).values()
+    (k2["device_ops_per_solve"], k3["device_ops_per_solve"],
+     k4["device_ops_per_solve"]) = launches_per_solve(per_solve_calls).values()
     log(json.dumps({"k3_cases": k3_cases, "k4_cases": k4_cases, "classical": classical,
                     "training": training}))
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))

@@ -1,5 +1,5 @@
 // The ADMM elementwise chain, shared by the fused step (fused_admm.cu) and the
-// whole solves (vmem_solver.cu, vmem_adaptive.cu).
+// whole solves (vmem_solver.cu, vmem_adaptive.cu, vmem_interleaved.cu).
 //
 // Per pixel of a plane, given the fresh primal x and the duals u:
 //   a  = D x + u                       (backward differences, circular)
@@ -10,10 +10,10 @@
 //
 // The adjoint differences make s' at (i, j) need t = z - u' at (i, j+1) and
 // (i+1, j), and each of those needs x at its own left and upper neighbours
-// (and, for 'sample', the channel norm at that neighbour). One thread per
-// pixel recomputes the two neighbours' shrinkage instead of staging a tile
-// with a halo in shared memory: the chain is bound by memory bytes, the
-// recomputed reads hit L1/L2, and the plane wraps circularly for free.
+// (and, for 'sample', the channel norm at that neighbour). In chain_eval (K2,
+// K3) one thread per pixel recomputes the two neighbours' shrinkage from
+// L1/L2 loads; K1 stages a tile with its halo in shared memory instead and
+// computes each pixel's shrinkage once.
 //
 // The per-pixel helpers take plain pointers, not __restrict__ ones: the
 // persistent whole-solve kernels inline them and write the same buffers in
@@ -118,58 +118,28 @@ __device__ __forceinline__ void chain_eval(const float* x, const float* ux, cons
   s = hty[plane + idx] + rho * (tx - txr + ty - tyd);
 }
 
-// One pass of the chain over n_planes planes of h x w, in groups of g.
-// rho_tau = {rho, tau} lives on the device, so no host sync is needed.
-// Inputs and outputs must not alias: neighbours read u before it is written.
+// z = shrink(a, tau) of one pixel in the per-plane modes (aniso clip form,
+// 'joint'); the same arithmetic as shrink_at. The tiled chains (K1 in
+// fused_admm.cu, K4 in vmem_interleaved.cu) take their operands from shared
+// memory and call this.
 template <int MODE>
-__global__ void __launch_bounds__(256)
-chain_kernel(const float* __restrict__ x, const float* __restrict__ ux,
-             const float* __restrict__ uy, const float* __restrict__ hty,
-             const float* __restrict__ rho_tau, float* __restrict__ s,
-             float* __restrict__ uxo, float* __restrict__ uyo, int n_planes,
-             int g, int h, int w) {
-  const long hw = (long)h * w;
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= hw) return;
-  const float rho = rho_tau[0];
-  const float tau = rho_tau[1];
-  for (int p = blockIdx.y; p < n_planes; p += gridDim.y) {
-    float sv, uxn, uyn;
-    chain_eval<MODE>(x, ux, uy, hty, rho, tau, p, g, h, w, idx, sv, uxn, uyn);
-    const long at = (long)p * hw + idx;
-    s[at] = sv;
-    uxo[at] = uxn;
-    uyo[at] = uyn;
+__device__ __forceinline__ void shrink_pixel(float ax, float ay, float tau, float& zx,
+                                             float& zy) {
+  if (MODE == kAniso) {
+    zx = ax - fminf(fmaxf(ax, -tau), tau);
+    zy = ay - fminf(fmaxf(ay, -tau), tau);
+  } else {
+    const float mag = sqrtf(ax * ax + ay * ay + kEps);
+    const float scale = fmaxf(1.0f - tau / mag, 0.0f);
+    zx = scale * ax;
+    zy = scale * ay;
   }
 }
 
-// Launch the chain for `mode` on `stream`; returns the launch status.
-inline cudaError_t launch_chain(int mode, const float* x, const float* ux,
-                                const float* uy, const float* hty,
-                                const float* rho_tau, float* s, float* uxo,
-                                float* uyo, int n_planes, int g, int h, int w,
-                                cudaStream_t stream) {
-  const long hw = (long)h * w;
-  const dim3 block(256);
-  const dim3 grid((unsigned)((hw + 255) / 256),
-                  (unsigned)(n_planes < 65535 ? n_planes : 65535));
-  switch (mode) {
-    case kAniso:
-      chain_kernel<kAniso><<<grid, block, 0, stream>>>(x, ux, uy, hty, rho_tau, s, uxo,
-                                                       uyo, n_planes, g, h, w);
-      break;
-    case kSample:
-      chain_kernel<kSample><<<grid, block, 0, stream>>>(x, ux, uy, hty, rho_tau, s, uxo,
-                                                        uyo, n_planes, g, h, w);
-      break;
-    case kJoint:
-      chain_kernel<kJoint><<<grid, block, 0, stream>>>(x, ux, uy, hty, rho_tau, s, uxo,
-                                                       uyo, n_planes, g, h, w);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+// 'sample': the factor max(1 - tau / (|a|_C + eps), 0) of a channel norm
+// from its sum of squares over the C channels.
+__device__ __forceinline__ float sample_scale(float sum_sq, float tau) {
+  return fmaxf(1.0f - tau / (sqrtf(sum_sq + kEps) + kEps), 0.0f);
 }
 
 }  // namespace admm

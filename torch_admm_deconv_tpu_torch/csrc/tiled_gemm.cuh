@@ -1,6 +1,7 @@
 // The tensor-core product engine of the whole-solve kernels (vmem_solver.cu:
-// K2 and K4; vmem_adaptive.cu: K3), and the cooperative launch of the
-// persistent solves.
+// K2; vmem_adaptive.cu: K3; vmem_interleaved.cu, K4, uses its fragments and
+// compute_exact / compute_fast on its own tiles), and the cooperative launch
+// of the persistent solves.
 //
 // One product job: C[b] = A1[b] @ B1[b] (+ A2[b] @ B2[b]), each row-major,
 // M x K times K x N, with per-batch element strides (a stride of 0 shares

@@ -1,10 +1,9 @@
-// K2 and K4: the whole fixed-iteration TV-ADMM solve.
+// K2: the whole fixed-iteration TV-ADMM solve.
 //
 // K2 (admm_tv_vmem_solve) replaces the TPU kernel
 // torch_admm_deconv_tpu/kernels/vmem_solver.py (_make_kernel, reached
 // through admm_tv_vmem -> _admm_tv_vmem_impl with schedule='batched').
-// K4 (admm_tv_vmem_interleaved) replaces _make_interleaved_kernel, reached
-// through admm_tv_vmem(schedule='interleaved') in aniso and 'joint' modes.
+// K4, the interleaved schedule, is vmem_interleaved.cu.
 //
 //   s <- hty, u <- 0
 //   repeat maxit:  x = T((T s) * freq)      freq carries 1/(H*W)
@@ -35,20 +34,7 @@
 // The product tiles shrink to 32 x 32 when 64 x 64 would leave SMs idle.
 // u is double-buffered because neighbours read it.
 //
-// K4: on the TPU the interleaved schedule completes one plane's iteration
-// before the next so that one plane's matrix-unit work overlaps another's
-// vector tail. Its Hopper counterpart keeps K2's math with the TPU
-// interleaved kernel's transform order (left stage first, _make_xform) and
-// runs each packed group of planes (the TPU kernel's grid program) as its
-// own sequence of product-tile and chain launches on its own stream, so that
-// one group's chain overlaps another's products. The streams wait on an
-// event of the caller's stream at the start and the caller's stream waits
-// on each of them at the end. Same bound as K2; at 256^2 the products are
-// short and the solve is bound by launches.
-//
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
-
-#include <mutex>
 
 #include "admm_chain.cuh"
 #include "tiled_gemm.cuh"
@@ -187,81 +173,6 @@ cudaError_t launch_k2(const Fixed& p, cudaStream_t stream) {
   return tiled::launch_cooperative(k2_persistent<T>, p, T::SMEM, stream);
 }
 
-// --- K4: the product tiles launched per stage ----------------------------------
-
-template <class T>
-__global__ void __launch_bounds__(tiled::THREADS, tiled::MIN_CTAS)
-gemm_kernel(const __grid_constant__ Gemm gm, int fast) {
-  extern __shared__ float4 smem_raw[];
-  const tiled::Blocks uniform{nullptr, 1};
-  tiled::run_stage<T>(&gm, 1, fast != 0, uniform, reinterpret_cast<float*>(smem_raw));
-}
-
-template <class T>
-cudaError_t launch_gemm(const Gemm& gm, bool fast, cudaStream_t stream) {
-  static std::once_flag once;
-  std::call_once(once, [] {
-    cudaFuncSetAttribute(gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)T::SMEM);
-  });
-  gemm_kernel<T><<<(unsigned)T::count(gm), tiled::THREADS, T::SMEM, stream>>>(gm, fast);
-  return cudaGetLastError();
-}
-
-cudaError_t gemm(const Gemm& gm, bool fast, bool big, cudaStream_t stream) {
-  return big ? launch_gemm<tiled::BigTile>(gm, fast, stream)
-             : launch_gemm<tiled::SmallTile>(gm, fast, stream);
-}
-
-__global__ void split_kernel(const __grid_constant__ Mats mats) { tiled::split_matrices(mats); }
-
-// The planes [first, first + planes) of one K4 solve: its buffers and stream.
-struct Group {
-  Mats mats;
-  int planes, h, w;
-  const float* hty;
-  float *out, *s, *ux[2], *uy[2], *y, *a, *d;
-  cudaStream_t stream;
-};
-
-// Iteration `it` of one group's solve: x = T(T(s) * freq) left stage first,
-// then the chain.
-cudaError_t iterate(const Group& gr, const float* freq, const float* rho_tau, int mode, int it,
-                    int fast_iters, bool big) {
-  const bool fast = it < fast_iters;
-  const float* src = it == 0 ? gr.hty : gr.s;  // x, z, u start at zero: RHS hty
-  Gemm first[2], last;
-  cudaError_t err = cudaSuccess;
-  for (int t = 0; t < 2 && err == cudaSuccess; ++t) {
-    const int n = tiled::left_first_stages(gr.mats, gr.planes, gr.h, gr.w, t == 0 ? src : gr.y,
-                                           t == 0 ? gr.y : gr.out, gr.a, gr.d,
-                                           t == 0 ? freq : nullptr, nullptr, first, &last);
-    for (int j = 0; j < n && err == cudaSuccess; ++j) err = gemm(first[j], fast, big, gr.stream);
-    if (err == cudaSuccess) err = gemm(last, fast, big, gr.stream);
-  }
-  if (err != cudaSuccess) return err;
-  const int cur = it & 1;
-  return admm::launch_chain(mode, gr.out, gr.ux[cur], gr.uy[cur], gr.hty, rho_tau, gr.s,
-                            gr.ux[cur ^ 1], gr.uy[cur ^ 1], gr.planes, 1, gr.h, gr.w,
-                            gr.stream);
-}
-
-constexpr int kStreams = 8;  // groups beyond this many share streams
-constexpr int kDevices = 16;
-
-// The side streams of the current device, made on first use.
-cudaStream_t* stream_pool() {
-  static cudaStream_t pool[kDevices][kStreams];
-  static std::once_flag once[kDevices];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= kDevices) return nullptr;
-  std::call_once(once[dev], [dev] {
-    for (auto& st : pool[dev]) cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking);
-  });
-  return pool[dev];
-}
-
 }  // namespace
 
 // Floats of the matrices' tf32 halves a solve needs in `split`.
@@ -315,70 +226,4 @@ extern "C" int admm_tv_vmem_solve(const float* hty, const float* freq, const flo
   const cudaError_t err = tiled::big_tiles(n_planes, h, w) ? launch_k2<tiled::BigTile>(p, stream)
                                                            : launch_k2<tiled::SmallTile>(p, stream);
   return (int)err;
-}
-
-// K4: the same arguments as admm_tv_vmem_solve; the planes run in groups of
-// `pack` (a divisor of n_planes), each group on a stream of its own. Modes:
-// aniso and 'joint' (per-plane shrinkage) only. K4 keeps no stage clock:
-// stage_ns must be null.
-extern "C" int admm_tv_vmem_interleaved(const float* hty, const float* freq, const float* m0,
-                                        const float* m1, const float* m2, const float* m3,
-                                        int n_mats, const float* rho_tau, float* out,
-                                        float* s, float* ux0, float* ux1, float* uy0,
-                                        float* uy1, float* y, float* a, float* d, float* split,
-                                        unsigned long long* stage_ns, int n_planes, int pack,
-                                        int h, int w, int mode, int maxit, int fast_iters,
-                                        void* stream_handle) {
-  cudaStream_t caller = (cudaStream_t)stream_handle;
-  const size_t bytes = (size_t)n_planes * h * w * sizeof(float);
-  if (n_mats != 2 && n_mats != 4) return (int)cudaErrorInvalidValue;
-  if (stage_ns != nullptr) return (int)cudaErrorInvalidValue;
-  if (mode == admm::kSample || pack <= 0 || n_planes % pack != 0)
-    return (int)cudaErrorInvalidValue;
-  if (maxit <= 0) {
-    cudaMemsetAsync(out, 0, bytes, caller);
-    return (int)cudaGetLastError();
-  }
-  cudaMemsetAsync(ux0, 0, bytes, caller);
-  cudaMemsetAsync(uy0, 0, bytes, caller);
-  const float* m[4] = {m0, m1, m2, m3};
-  const Mats mats = tiled::make_mats(m, n_mats, h, w, split);
-  split_kernel<<<64, 256, 0, caller>>>(mats);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int n_groups = n_planes / pack;
-  const int n_streams = n_groups < kStreams ? n_groups : kStreams;
-  cudaStream_t* pool = stream_pool();
-  if (pool == nullptr) return (int)cudaErrorInvalidDevice;
-  cudaEvent_t start;
-  cudaEventCreateWithFlags(&start, cudaEventDisableTiming);
-  cudaEventRecord(start, caller);
-  for (int i = 0; i < n_streams; ++i) cudaStreamWaitEvent(pool[i], start, 0);
-
-  const bool big = tiled::big_tiles(pack, h, w);
-  err = cudaGetLastError();
-  // iteration-major launch order: the groups' launches interleave on the
-  // host, so the card runs one group's chain beside another's products
-  for (int it = 0; it < maxit && err == cudaSuccess; ++it) {
-    for (int k = 0; k < n_groups && err == cudaSuccess; ++k) {
-      const long off = (long)k * pack * h * w;
-      const Group gr{mats, pack, h, w, hty + off, out + off, s + off,
-                     {ux0 + off, ux1 + off}, {uy0 + off, uy1 + off}, y + off, a + off,
-                     d != nullptr ? d + off : nullptr, pool[k % n_streams]};
-      err = iterate(gr, freq, rho_tau, mode, it, fast_iters, big);
-    }
-  }
-  // join even after a failed launch, so the caller's stream never runs
-  // ahead of work already queued on the side streams
-  for (int i = 0; i < n_streams; ++i) {
-    cudaEvent_t done;
-    cudaEventCreateWithFlags(&done, cudaEventDisableTiming);
-    cudaEventRecord(done, pool[i]);
-    cudaStreamWaitEvent(caller, done, 0);
-    cudaEventDestroy(done);  // released once the caller's stream has passed it
-  }
-  cudaEventDestroy(start);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
 }

@@ -11,9 +11,10 @@ K2, ``admm_tv_vmem`` with ``schedule='batched'`` (JAX :918-1061, kernel
     return x       (zeros when maxit == 0)
 
 K4, ``schedule='interleaved'`` (kernel ``_make_interleaved_kernel``
-:134-210): the same math per plane with the transform's left stage first,
-each packed group of planes on its own stream; aniso and 'joint' only
-('sample' runs K2, as in JAX).
+:134-210, here ``csrc/vmem_interleaved.cu``): the same math per plane with
+the transform's left stage first; aniso and 'joint' only ('sample' runs K2,
+as in JAX). One launch per solve: a thread-block cluster per plane, the
+plane's state in the cluster's shared memory.
 
 K3, ``admm_tv_adaptive_vmem`` (:724-915, kernel ``_make_adaptive_kernel``
 :505-683): residual stopping, adaptive rho and the mixed-precision phase
@@ -22,8 +23,8 @@ returning the exit state for implicit differentiation.
 
 T is the separable cas transform (no PSF or an axis-symmetric one) or the
 2-D Hartley pair (any other real PSF), chosen by ``psf_is_axis_symmetric``.
-Each solve is one C call on the caller's stream; K2 and K3 are one
-cooperative launch each, K3 with its stopping test on the card. On the
+Each solve is one C call on the caller's stream and one launch: K2 and K3
+cooperative, K3 with its stopping test on the card, K4 clustered. On the
 card the products run on the tensor cores: 'high' as 3xTF32 (float32
 accuracy), the fast phase of 'mixed' as one bf16 pass on operands and
 matrices rounded to bf16. The plain versions compute the same products
@@ -42,7 +43,7 @@ import torch
 
 from torch_admm_deconv_tpu_torch._device import resolve_device
 from torch_admm_deconv_tpu_torch.kernels._build import LIBRARIES, LaunchCounter, check
-from torch_admm_deconv_tpu_torch.kernels.fused_admm import FORWARD_ONLY, MODES, check_planes
+from torch_admm_deconv_tpu_torch.kernels.fused_admm import FORWARD_ONLY, MODES, _ptr, check_planes
 from torch_admm_deconv_tpu_torch.ops import fdops
 from torch_admm_deconv_tpu_torch.ops.hartley import (
     cas_mats,
@@ -62,27 +63,40 @@ SCHEDULES = ("batched", "interleaved")
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the C entry points' parameters, in order (csrc/vmem_solver.cu,
+# csrc/vmem_interleaved.cu, csrc/vmem_adaptive.cu)
+FIXED_ARGTYPES = [_VP] * 6 + [_I] + [_VP] * 12 + [_I] * 7 + [_VP]
+INTERLEAVED_ARGTYPES = [_VP] * 6 + [_I] + [_VP] * 4 + [_I] * 7 + [_VP]
+ADAPTIVE_ARGTYPES = [_VP] * 7 + [_I] + [_VP] * 11 + [_I] * 6 + [_F, _I, _F, _F, _I, _F, _I, _F, _VP]
 
 
-def _fixed_lib(name: str):
+def _fixed_lib():
     lib = LIBRARIES.load("vmem_solver")
-    fn = getattr(lib, name)
+    fn = lib.admm_tv_vmem_solve
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 6 + [_I] + [_VP] * 12 + [_I] * 7 + [_VP]
+        fn.argtypes = FIXED_ARGTYPES
         fn.restype = _I
         lib.admm_tv_vmem_split_floats.argtypes = [_I] * 2
         lib.admm_tv_vmem_split_floats.restype = ctypes.c_long
     return lib, fn
 
 
+def _interleaved_lib():
+    lib = LIBRARIES.load("vmem_interleaved")
+    fn = lib.admm_tv_vmem_interleaved
+    if fn.argtypes is None:
+        fn.argtypes = INTERLEAVED_ARGTYPES
+        fn.restype = _I
+        lib.admm_tv_vmem_interleaved_workspace.argtypes = [_I] * 4
+        lib.admm_tv_vmem_interleaved_workspace.restype = ctypes.c_long
+    return lib
+
+
 def _adaptive_lib():
     lib = LIBRARIES.load("vmem_adaptive")
     fn = lib.admm_tv_adaptive_solve
     if fn.argtypes is None:
-        fn.argtypes = (
-            [_VP] * 7 + [_I] + [_VP] * 11 + [_I] * 6
-            + [_F, _I, _F, _F, _I, _F, _I, _F, _VP]
-        )
+        fn.argtypes = ADAPTIVE_ARGTYPES
         fn.restype = _I
         lib.admm_tv_adaptive_workspace.argtypes = [_I] * 3
         lib.admm_tv_adaptive_workspace.restype = ctypes.c_long
@@ -167,11 +181,10 @@ def admm_tv_vmem_interleaved_plain(hty, freq_full, mats, rho, tau, mode, maxit: 
     return _fixed_plain(_xform, hty, freq_full, mats, rho, tau, mode, maxit, fast_iters)
 
 
-def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack, stage_ns=None):
-    """K2 (``pack`` None) or K4 (planes in groups of ``pack``). ``stage_ns``
-    (K2 only): None, or a CUDA int64 tensor of 6 zeros to which the solve
-    adds the device nanoseconds of its stages (prologue, 4 product stages,
-    chain) as the grid's first CTA sees them between grid barriers."""
+def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, stage_ns=None):
+    """K2. ``stage_ns``: None, or a CUDA int64 tensor of 6 zeros to which
+    the solve adds the device nanoseconds of its stages (prologue, 4 product
+    stages, chain) as the grid's first CTA sees them between grid barriers."""
     check_planes("admm_tv_vmem", hty)
     b, c, h, w = hty.shape
     if freq_full.shape != (h, w) or any(m.dtype != torch.float32 for m in mats):
@@ -179,40 +192,66 @@ def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack, stage_
     general = len(mats) == 4
     out, s, ux0, ux1, uy0, uy1, y, a = (torch.empty_like(hty) for _ in range(8))
     d = torch.empty_like(hty) if general else None
-    name = "admm_tv_vmem_solve" if pack is None else "admm_tv_vmem_interleaved"
-    lib, fn = _fixed_lib(name)
+    lib, fn = _fixed_lib()
     # the matrices' tf32 halves, split once per solve
     split = torch.empty(lib.admm_tv_vmem_split_floats(h, w), dtype=torch.float32, device=hty.device)
     m = list(mats) + [None] * (4 - len(mats))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    if pack is None:
-        group, counter = (c if mode == "sample" else 1), LAUNCHES
-    else:
-        group, counter = pack, INTERLEAVED_LAUNCHES
+    group = c if mode == "sample" else 1
     with torch.cuda.device(hty.device):
         stream = torch.cuda.current_stream(hty.device).cuda_stream
         status = fn(
-            hty.data_ptr(), freq_full.data_ptr(), *(ptr(t) for t in m), len(mats),
+            hty.data_ptr(), freq_full.data_ptr(), *(_ptr(t) for t in m), len(mats),
             rho_tau.data_ptr(), out.data_ptr(), s.data_ptr(), ux0.data_ptr(), ux1.data_ptr(),
-            uy0.data_ptr(), uy1.data_ptr(), y.data_ptr(), a.data_ptr(), ptr(d), split.data_ptr(),
-            ptr(stage_ns), b * c, group, h, w, MODES[mode], maxit, fast_iters, stream,
+            uy0.data_ptr(), uy1.data_ptr(), y.data_ptr(), a.data_ptr(), _ptr(d), split.data_ptr(),
+            _ptr(stage_ns), b * c, group, h, w, MODES[mode], maxit, fast_iters, stream,
         )
-    check(status, name)
-    counter.add()
+    check(status, "admm_tv_vmem_solve")
+    LAUNCHES.add()
+    return out
+
+
+def _launch_interleaved(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack,
+                        stage_ns=None):
+    """K4: one clustered launch per solve. ``pack`` (the TPU kernel's planes
+    per grid program) is checked, not used: the kernel's unit is a plane.
+    ``stage_ns``: None, or a CUDA int64 tensor of 6 zeros that receives
+    cluster 0's device nanoseconds by stage (prologue, 4 product stages,
+    chain), summed over its planes and iterations."""
+    check_planes("admm_tv_vmem", hty)
+    b, c, h, w = hty.shape
+    if freq_full.shape != (h, w) or any(m.dtype != torch.float32 for m in mats):
+        raise ValueError("admm_tv_vmem: spectrum or matrices do not match the planes")
+    lib = _interleaved_lib()
+    n_planes = b * c
+    floats = lib.admm_tv_vmem_interleaved_workspace(n_planes, h, w, MODES[mode])
+    check(0 if floats >= 0 else 1, "admm_tv_vmem_interleaved_workspace")
+    out = torch.empty_like(hty)
+    work = torch.empty(floats, dtype=torch.float32, device=hty.device)
+    m = list(mats) + [None] * (4 - len(mats))
+    with torch.cuda.device(hty.device):
+        stream = torch.cuda.current_stream(hty.device).cuda_stream
+        status = lib.admm_tv_vmem_interleaved(
+            hty.data_ptr(), freq_full.data_ptr(), *(_ptr(t) for t in m), len(mats),
+            rho_tau.data_ptr(), out.data_ptr(), work.data_ptr(), _ptr(stage_ns), n_planes, pack,
+            h, w, MODES[mode], maxit, fast_iters, stream,
+        )
+    check(status, "admm_tv_vmem_interleaved")
+    INTERLEAVED_LAUNCHES.add()
     return out
 
 
 class _WholeSolve(torch.autograd.Function):
-    """K2 (``pack`` None) or K4 (groups of ``pack`` planes)."""
+    """K2 (``pack`` None) or K4 (planes checked against groups of ``pack``)."""
 
     @staticmethod
     def forward(ctx, hty, freq_full, rho, tau, mode, maxit, fast_iters, pack, *mats):
         if hty.is_cuda:
             rho_tau = torch.stack([rho, tau]).to(torch.float32).contiguous()
-            return _launch(
-                hty.contiguous(), freq_full.contiguous(), [m.contiguous() for m in mats],
-                rho_tau, mode, maxit, fast_iters, pack,
-            )
+            args = (hty.contiguous(), freq_full.contiguous(), [m.contiguous() for m in mats],
+                    rho_tau, mode, maxit, fast_iters)
+            if pack is None:
+                return _launch(*args)
+            return _launch_interleaved(*args, pack)
         plain = admm_tv_vmem_plain if pack is None else admm_tv_vmem_interleaved_plain
         return plain(hty, freq_full, mats, rho, tau, mode, maxit, fast_iters)
 
@@ -485,15 +524,14 @@ def _launch_adaptive(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig, stage
     iters = torch.empty(nb, dtype=torch.int32, device=dev)
     stats = torch.empty(3, nb, dtype=torch.float32, device=dev)
     m = list(mats) + [None] * (4 - len(mats))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     scale = float(np.sqrt(np.float32(2 * g * h * w)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.admm_tv_adaptive_solve(
-            hty.data_ptr(), habs2.data_ptr(), d2.data_ptr(), *(ptr(t) for t in m), len(mats),
+            hty.data_ptr(), habs2.data_ptr(), d2.data_ptr(), *(_ptr(t) for t in m), len(mats),
             lmbd_rho0.data_ptr(), x.data_ptr(), zx.data_ptr(), zy.data_ptr(), ux.data_ptr(),
             uy.data_ptr(), work.data_ptr(), state.data_ptr(), iters.data_ptr(), stats.data_ptr(),
-            ptr(stage_ns), n_planes, g, h, w, MODES[cfg.mode], cfg.maxit, cfg.tol, int(cfg.adapt),
+            _ptr(stage_ns), n_planes, g, h, w, MODES[cfg.mode], cfg.maxit, cfg.tol, int(cfg.adapt),
             cfg.rho_mu, cfg.rho_scale, int(cfg.use_fast),
             cfg.fast_switch, cfg.fast_cap, scale, stream,
         )

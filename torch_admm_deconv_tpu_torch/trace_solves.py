@@ -1,8 +1,8 @@
-"""Device-time breakdown of the whole-solve kernels K3 and K2 on the GPU.
+"""Device-time breakdown of the whole-solve kernels K3, K2 and K4 on the GPU.
 
     python -m torch_admm_deconv_tpu_torch.trace_solves
 
-Traces three solves under ``torch.profiler``, each after one warm-up call
+Traces five solves under ``torch.profiler``, each after one warm-up call
 with the same inputs:
 
 - K3 (``admm_tv_adaptive_vmem``) at (8, 3, 512, 512), aniso, lambda 0.05,
@@ -10,18 +10,21 @@ with the same inputs:
 - K3 at (1, 3, 256, 256), 'sample', lambda 0.05, rho 1 fixed, tol 1e-6,
   maxit 500, 'high' (the implicit layer's forward);
 - K2 (``admm_tv_vmem``) at (1, 3, 256, 256), 'sample', lambda 0.05, rho 1,
-  100 iterations (the flagship's ADMM layer).
+  100 iterations (the flagship's ADMM layer);
+- K2 and K4 (``admm_tv_vmem(schedule='interleaved')``) at (8, 3, 256, 256),
+  aniso, lambda 0.05, rho 1, 100 iterations (the serving batch).
 
 Inputs are synthetic piecewise-constant images plus Gaussian noise
 (sigma 15/255) from numpy seed 0. For each solve it prints one JSON line:
 the wall time by CUDA events, the summed device time of its kernels and the
 busy share (summed kernel time over the wall time; one stream), and the
-device time and launch count by kernel. K2 and K3 are one persistent
+device time and launch count by kernel. K2, K3 and K4 are one persistent
 launch each, which the profiler sees as one kernel, so a further call
 reads the kernel's own stage clock (the ``stage_ns`` buffer of
-``vmem_solver._launch`` and ``_launch_adaptive``): device time by stage,
-summed over the iterations, as the grid's first CTA sees it between grid
-barriers. Fails without a GPU.
+``vmem_solver._launch``, ``_launch_adaptive`` and ``_launch_interleaved``):
+device time by stage, summed over the iterations, as the grid's first CTA
+sees it between grid barriers (K4: between its cluster's barriers). Fails
+without a GPU.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 STAGES = {
     "K2": ("prologue", "product_1", "product_2", "product_3", "product_4", "chain"),
+    "K4": ("prologue", "product_1", "product_2", "product_3", "product_4", "chain"),
     "K3": ("prologue", "product_1", "product_2", "product_3", "product_4", "residual",
            "finalize", "rhs"),
 }
@@ -72,15 +76,19 @@ def adaptive_solve(x, lmbd, rho, iso, iso_mode, maxit, tol, rho_mu):
         hty, habs2, d2, mats, lr, cfg, stage_ns=stage_ns)[5]
 
 
-def fixed_solve(x, lmbd, rho, iso_mode, maxit):
-    """A K2 solve in 'high' as ``admm_tv_vmem`` runs it, as a function of
-    the stage clock buffer."""
+def fixed_solve(x, lmbd, rho, iso_mode, maxit, interleaved=False):
+    """A K2 (or K4) solve in 'high' as ``admm_tv_vmem`` runs it, as a
+    function of the stage clock buffer."""
     from torch_admm_deconv_tpu_torch.kernels import vmem_solver
 
     hty, freq, rho_t, tau_t, mats = vmem_solver.solve_inputs(x, lmbd, rho, None)
     rho_tau = torch.stack([rho_t, tau_t]).contiguous()
+    if interleaved:
+        pack = vmem_solver._fixed_pack(x.shape, iso_mode is not None, iso_mode or "joint")
+        return lambda stage_ns=None: vmem_solver._launch_interleaved(
+            hty, freq, mats, rho_tau, iso_mode, maxit, 0, pack, stage_ns=stage_ns)
     return lambda stage_ns=None: vmem_solver._launch(
-        hty, freq, mats, rho_tau, iso_mode, maxit, 0, None, stage_ns=stage_ns)
+        hty, freq, mats, rho_tau, iso_mode, maxit, 0, stage_ns=stage_ns)
 
 
 def trace(name: str, kind: str, fn) -> dict:
@@ -129,12 +137,15 @@ def main() -> int:
     rng = np.random.default_rng(0)
     big = torch.from_numpy(noisy_images(rng, 8, 3, 512, 512)).to(dev)
     tile = torch.from_numpy(noisy_images(rng, 1, 3, 256, 256)).to(dev)
+    batch = torch.from_numpy(noisy_images(rng, 8, 3, 256, 256)).to(dev)
     solves = [
         ("K3 (8,3,512,512) aniso tol 1e-5 high", "K3",
          adaptive_solve(big, 0.05, 0.8, False, "sample", 2000, 1e-5, 10.0)),
         ("K3 (1,3,256,256) sample tol 1e-6 rho fixed high", "K3",
          adaptive_solve(tile, 0.05, 1.0, True, "sample", 500, 1e-6, 1e30)),
         ("K2 (1,3,256,256) sample x100 high", "K2", fixed_solve(tile, 0.05, 1.0, "sample", 100)),
+        ("K2 (8,3,256,256) aniso x100 high", "K2", fixed_solve(batch, 0.05, 1.0, None, 100)),
+        ("K4 (8,3,256,256) aniso x100 high", "K4", fixed_solve(batch, 0.05, 1.0, None, 100, True)),
     ]
     with torch.inference_mode():
         for name, kind, fn in solves:
