@@ -3,12 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``torch_admm_deconv_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, and drives two
+holds each against its plain PyTorch version on the card, and drives three
 main paths, each with the launch counts set to 0 just before and read just
 after: (1) the flagship DivergentRestorer forward at full width, classical
 tiled TV-ADMM serving and the solver loop with the fused step (phases 4-6);
 (2) the interleaved classical batch, the residual-stopped classical solve
-at full size and implicit-gradient training steps (phases 8-10). It checks
+at full size and implicit-gradient training steps (phases 8-10); (3) the
+flagship trained at full width through the port's trainer, its best
+checkpoint served through the whole-solve kernel (phase 11). It checks
 their outputs and prints one JSON line of kernel numbers and, last, one
 JSON status line. Exits non-zero, with no result line, when there is no GPU
 or a phase fails.
@@ -16,6 +18,8 @@ or a phase fails.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import re
@@ -23,6 +27,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -576,6 +581,198 @@ def implicit_training(dev, tile, clean_tile):
     return out
 
 
+class SyntheticPairs:
+    """An in-memory stand-in for ``ImageDataset``, which reads image files
+    with PIL (not needed here) from a corpus the repo does not hold: clean
+    synthetic images in [0, 255] as both x and y, through the same paired
+    transforms, read by ``DataLoader`` through ``get(idx, rng)``."""
+
+    def __init__(self, images, transforms):
+        self.images, self.transforms = images, transforms
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def get(self, idx: int, rng: np.random.Generator):
+        x = y = self.images[idx]
+        for t in self.transforms:
+            x, y = t(x, y, rng)
+        return x, y
+
+
+# configs/train_cfg.json's batch sizes: batch 3 at 256^2 fits the card (at
+# most 27.6 GiB allocated over two epochs on an H100 80GB), so no accumulation
+TRAIN_BATCH, ACCUM_STEPS, EVAL_BATCH = 3, 1, 8
+# the fixed-batch steps' LR: 1/100 of the training LR, where a step is a
+# first-order descent step (at the training LR itself 4 steps raised the
+# fixed batch's loss 0.179 -> 0.214 on an H100, two epochs in)
+FIXED_LR = 8.8e-6
+
+
+def flagship_training(dev, rng):
+    """Phase 11: the flagship trained at full width, as
+    ``scripts/train.py`` trains it: DivergentRestorer [2, 8, 32] / 86 filters,
+    two unrolled 100-iteration 'compat' ADMM layers under remat,
+    SSIMLabColorLoss, AdamW, the warm-restart schedule, the strictly-best
+    saver, AWGN sigma in [0, 15)/255 added on the fly to 256^2 crops of
+    3x320x320 synthetic images (6 train, 8 eval) for 2 epochs; then 4 steps
+    on one fixed batch at ``FIXED_LR``; then the best checkpoint served at
+    batch 1 through K2 (``model_restorer``)."""
+    from torch_admm_deconv_tpu_torch.data import AddAWGN, DataLoader, RandCrop, Scale
+    from torch_admm_deconv_tpu_torch.infer import model_restorer
+    from torch_admm_deconv_tpu_torch.kernels import vmem_solver
+    from torch_admm_deconv_tpu_torch.metrics import (
+        MAELoss,
+        PSNRMetric,
+        SCCMetric,
+        SSIMLabColorLoss,
+        SSIMMetric,
+        UIQMetric,
+        functional,
+        ssim,
+    )
+    from torch_admm_deconv_tpu_torch.models.denoiser import flagship_divergent_restorer
+    from torch_admm_deconv_tpu_torch.train import (
+        MetricsLogger,
+        NNSaver,
+        NNTrainer,
+        cosine_annealing_warm_restarts,
+        load_checkpoint,
+        make_optimizer,
+    )
+
+    transforms = [RandCrop((256, 256)), Scale(), AddAWGN(std_range=(0, 15))]
+    images = [synthetic_image(rng, 3, 320, 320) * 255.0 for _ in range(14)]
+    train_loader = DataLoader(SyntheticPairs(images[:6], transforms), TRAIN_BATCH, seed=0)
+    eval_loader = DataLoader(SyntheticPairs(images[6:], transforms), EVAL_BATCH, seed=1)
+    fixed = [next(iter(train_loader))]
+
+    loss = SSIMLabColorLoss()
+    metrics = [PSNRMetric(), SCCMetric(), SSIMMetric(), MAELoss(), UIQMetric()]
+    logger = MetricsLogger(loss, metrics)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    saver = NNSaver(out_dir, "flagship")
+    trainer = NNTrainer(loss, metrics, saver, logger, skip_nonfinite_updates=True,
+                        on_nonfinite="raise", accum_steps=ACCUM_STEPS)
+    lr = 8.8e-4
+    sched = cosine_annealing_warm_restarts(lr, 15000, eta_min=1e-11)
+    model = flagship_divergent_restorer(device=dev, generator=torch.Generator().manual_seed(0))
+
+    # every step ends in a synchronize here, so the host clock times it;
+    # the peak of device memory allocated during each step, by kind
+    times = {"train": [], "eval": []}
+    peaks = {"train": 0, "eval": 0}
+
+    def timed(fn, key):
+        def step(*args):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            peaks[key] = max(peaks[key], torch.cuda.max_memory_allocated())
+            return out
+        return step
+
+    trainer._train_step = timed(trainer._train_step, "train")
+    trainer._train_step_accum = timed(trainer._train_step_accum, "train")
+    trainer._eval_step = timed(trainer._eval_step, "eval")
+    log_buf = io.StringIO()  # the parameter table and epoch lines: a summary is printed
+    with contextlib.redirect_stdout(log_buf):
+        trainer.run(model, make_optimizer(lr), 2, train_loader, eval_loader,
+                    lr_scheduler=sched, base_lr=lr)
+        epochs = {k: list(v) for k, v in logger.get_logged().items() if v}
+        fixed_losses = []  # the loss before each of the 4 steps, then after the last
+        for _ in range(4):
+            trainer.train(fixed, lambda step: FIXED_LR)
+            fixed_losses.append(logger.get_avg_metrics("train")[loss.m_name])
+        trainer.eval(fixed)
+        fixed_losses.append(logger.get_avg_metrics("eval")[loss.m_name])
+    steps, warm = times["train"], times["train"][1:]  # 2 epochs' steps, then the fixed 4
+    evals = times["eval"][:2]  # the epochs' eval steps (the fixed-batch one comes after)
+    lam_rho = {n: float(p.detach()) for n, p in model.named_parameters()
+               if n.rsplit(".", 1)[-1] in ("lmbda", "rho")}
+    log(f"flagship training (batch {TRAIN_BATCH} x accum {ACCUM_STEPS}, 256^2): "
+        f"{len(steps) - 4} steps in 2 epochs and 4 on a fixed batch, warm steps (median of "
+        f"{len(warm)}, min-max) {statistics.median(warm):.3f} s [{min(warm):.3f}, "
+        f"{max(warm):.3f}] (first {steps[0]:.3f} s), eval steps (batch {EVAL_BATCH}) "
+        f"{[round(t, 3) for t in evals]} s, peak memory of a train step "
+        f"{peaks['train'] / 2**30:.2f} GiB, of an eval step {peaks['eval'] / 2**30:.2f} GiB; "
+        f"epoch losses train {epochs['train_color_lab_loss']} eval "
+        f"{epochs['eval_color_lab_loss']}, eval PSNR {epochs['eval_psnr']}; fixed batch "
+        f"loss at lr {FIXED_LR} {[round(v, 6) for v in fixed_losses]}; skipped "
+        f"updates {trainer.skipped_updates}; lambda/rho {lam_rho}")
+    require(trainer.skipped_updates == 0, "flagship training skipped an update")
+    require(all(math.isfinite(v) for vals in epochs.values() for v in vals)
+            and all(math.isfinite(v) for v in fixed_losses), "flagship training: non-finite")
+    require(fixed_losses[-1] < fixed_losses[0], "flagship training: the fixed-batch loss did not fall")
+    require(all(1e-12 <= v <= 5.0 for v in lam_rho.values()),
+            "flagship training: lambda or rho left [1e-12, 5]")
+
+    # the loss's SSIM windows run in float32 whatever the TF32 flags say
+    with torch.no_grad():
+        pred = model(torch.from_numpy(fixed[0][0]).to(dev))
+        target = torch.from_numpy(fixed[0][1]).to(dev)
+        ssim_off = float(ssim(pred, target))
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ssim_on = float(ssim(pred, target))
+            # for scale: the windowed variance E[x^2] - mu^2 of the output by a
+            # plain grouped conv (unguarded, TF32 on) against the guarded one
+            k = torch.exp(-((torch.arange(11, device=dev) - 5.0) ** 2) / (2 * 1.5**2))
+            k = k / k.sum()
+            w2 = (k[:, None] * k[None, :]).expand(3, 1, 11, 11).contiguous()
+            raw = [torch.nn.functional.conv2d(v, w2, groups=3) for v in (pred * pred, pred)]
+            var_tf32 = raw[0] - raw[1] ** 2
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        mu_xx, mu_x = (functional._windowed_means(v, k) for v in (pred * pred, pred))
+        var_f32 = mu_xx - mu_x**2
+        var_gap = float((var_tf32 - var_f32).abs().max())
+    ssim_gap = abs(ssim_on - ssim_off)
+    log(f"SSIM of the trained output (3, 3, 256, 256): TF32 off {ssim_off:.8f}, on {ssim_on:.8f}, "
+        f"|diff| {ssim_gap:.3e} (tol 1e-5); for scale, window variances by an unguarded "
+        f"grouped conv with TF32 on differ from the guarded float32 ones by up to {var_gap:.3e} "
+        f"(smallest {float(var_tf32.min()):.3e} / {float(var_f32.min()):.3e})")
+    require(ssim_gap <= 1e-5, f"SSIM depends on the TF32 flags: {ssim_gap}")
+
+    # the best checkpoint, served at batch 1 through K2, against the loop
+    best = sorted(saver.model_saving_path.parent.glob("*.tar"))[-1]
+    state = load_checkpoint(best, map_location=dev)["model_state_dict"]
+    served = flagship_divergent_restorer(remat=False, use_pallas=True, device=dev)
+    loop = flagship_divergent_restorer(remat=False, use_pallas=False, device=dev)
+    loop.load_state_dict(state)
+    loop.eval()
+    admm_out = {}
+    for tag, net in (("kernel", served), ("loop", loop)):
+        for i in range(2):
+            getattr(net.block_0, f"admm_{i}").register_forward_hook(
+                lambda mod, inp, out, key=(tag, i): admm_out.__setitem__(key, out))
+    tile = fixed[0][0][:1]
+    before = vmem_solver.LAUNCHES.n
+    restored = model_restorer(state, model=served, device=dev)(tile)
+    k2_served = vmem_solver.LAUNCHES.n - before
+    with torch.inference_mode():
+        loop_out = loop(torch.from_numpy(tile).to(dev)).cpu().numpy()
+    admm_err = max(max_diff(admm_out[("kernel", i)], admm_out[("loop", i)]) for i in range(2))
+    out_err = float(np.abs(restored - loop_out).max())
+    log(f"best checkpoint {best.name} served (1, 3, 256, 256): K2 launches {k2_served}, ADMM "
+        f"layers max|kernel - loop| {admm_err:.3e} (tol 1e-4), output max {out_err:.3e}")
+    require(k2_served == 2, f"the served checkpoint must launch K2 twice, launched {k2_served}")
+    require(restored.shape == (1, 3, 256, 256) and np.isfinite(restored).all(),
+            "served checkpoint output malformed")
+    require(admm_err <= 1e-4, f"served checkpoint: ADMM layers disagree with the loop: {admm_err}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"batch": TRAIN_BATCH, "accum_steps": ACCUM_STEPS, "image": [3, 256, 256],
+            "step_s_median": statistics.median(warm), "step_s": steps,
+            "eval_step_s": evals, "peak_memory_bytes": peaks,
+            "fixed_batch_loss": fixed_losses, "epochs": epochs, "lambda_rho": lam_rho,
+            "ssim_tf32_off": ssim_off, "ssim_tf32_on": ssim_on,
+            "unguarded_tf32_variance_gap": var_gap, "served_k2_launches": k2_served,
+            "served_admm_err": admm_err, "served_output_err": out_err,
+            "trainer_log_tail": log_buf.getvalue().strip().splitlines()[-3:]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -849,12 +1046,29 @@ def main() -> int:
     k4["launches"] = vmem_solver.INTERLEAVED_LAUNCHES.n
     for entry in (k3, k4):
         require(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
+
+    # -- the third main path: counts set to 0 just before, read just after ---
+    counters = {"fused_elementwise_step": fused_admm.LAUNCHES, "admm_tv_vmem": vmem_solver.LAUNCHES,
+                "admm_tv_vmem_interleaved": vmem_solver.INTERLEAVED_LAUNCHES,
+                "admm_tv_adaptive_vmem": vmem_solver.ADAPTIVE_LAUNCHES}
+    for counter in counters.values():
+        counter.reset()
+    # phase 11: flagship training, and its best checkpoint served through K2
+    t_phase = time.perf_counter()
+    flagship_train = flagship_training(dev, np.random.default_rng(11))
+    flagship_train["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: {flagship_train['phase_s']:.1f} s")
+    flagship_train["launches"] = {name: c.n for name, c in counters.items()}
+    k2["launches_training_path"] = counters["admm_tv_vmem"].n
+    require(k2["launches_training_path"] == 2,
+            f"{k2['name']} was not launched twice on the training path")
     # device operations per K2, K3 and K4 solve, last: the timed phases run
     # before any profiler session
     (k2["device_ops_per_solve"], k3["device_ops_per_solve"],
      k4["device_ops_per_solve"]) = launches_per_solve(per_solve_calls).values()
     log(json.dumps({"k3_cases": k3_cases, "k4_cases": k4_cases, "classical": classical,
                     "training": training}))
+    log(json.dumps({"flagship_training": flagship_train}))
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
