@@ -3,14 +3,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``torch_admm_deconv_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, and drives three
+holds each against its plain PyTorch version on the card, and drives four
 main paths, each with the launch counts set to 0 just before and read just
 after: (1) the flagship DivergentRestorer forward at full width, classical
 tiled TV-ADMM serving and the solver loop with the fused step (phases 4-6);
 (2) the interleaved classical batch, the residual-stopped classical solve
 at full size and implicit-gradient training steps (phases 8-10); (3) the
 flagship trained at full width through the port's trainer, its best
-checkpoint served through the whole-solve kernel (phase 11). It checks
+checkpoint served through the whole-solve kernel (phase 11); (4) the eval
+harness's per-image function with its model, admm and bm3d columns (phase
+12), NAFNet at the comparison width and its training script (phase 13),
+and the serving script (phase 14). It checks
 their outputs and prints one JSON line of kernel numbers and, last, one
 JSON status line. Exits non-zero, with no result line, when there is no GPU
 or a phase fails.
@@ -605,7 +608,9 @@ class SyntheticPairs:
 TRAIN_BATCH, ACCUM_STEPS, EVAL_BATCH = 3, 1, 8
 # the fixed-batch steps' LR: 1/100 of the training LR, where a step is a
 # first-order descent step (at the training LR itself 4 steps raised the
-# fixed batch's loss 0.179 -> 0.214 on an H100, two epochs in)
+# fixed batch's loss 0.179 -> 0.214 on an H100, two epochs in; the port's
+# trainer takes the JAX trainer's steps at that LR, to 4e-8 in float64:
+# tests/test_torch_fixed_batch_lr.py)
 FIXED_LR = 8.8e-6
 
 
@@ -762,8 +767,8 @@ def flagship_training(dev, rng):
     require(restored.shape == (1, 3, 256, 256) and np.isfinite(restored).all(),
             "served checkpoint output malformed")
     require(admm_err <= 1e-4, f"served checkpoint: ADMM layers disagree with the loop: {admm_err}")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    return {"batch": TRAIN_BATCH, "accum_steps": ACCUM_STEPS, "image": [3, 256, 256],
+    return {"best_checkpoint": str(best), "checkpoint_dir": out_dir,
+            "batch": TRAIN_BATCH, "accum_steps": ACCUM_STEPS, "image": [3, 256, 256],
             "step_s_median": statistics.median(warm), "step_s": steps,
             "eval_step_s": evals, "peak_memory_bytes": peaks,
             "fixed_batch_loss": fixed_losses, "epochs": epochs, "lambda_rho": lam_rho,
@@ -771,6 +776,229 @@ def flagship_training(dev, rng):
             "unguarded_tf32_variance_gap": var_gap, "served_k2_launches": k2_served,
             "served_admm_err": admm_err, "served_output_err": out_err,
             "trainer_log_tail": log_buf.getvalue().strip().splitlines()[-3:]}
+
+
+# scripts/eval_algs.py at its defaults: 256^2 crops, AWGN sigma in [15, 16),
+# lambda 0.05, rho 1, 100 iterations; the deblur protocol with a 9x9
+# Gaussian of sigma 1.5. Synthetic 3x320x320 images (the card's machine has
+# no PIL and the repo no corpus); BM3D, NumPy on the host (5 s an image on
+# one core), on the first image only
+EVAL_IMAGES = 4
+EVAL_LMBD, EVAL_RHO, EVAL_MAXIT = 0.05, 1.0, 100
+
+
+def eval_harness(dev, rng, ckpt):
+    """Phase 12: the eval harness's per-image function
+    (``scripts.eval_algs.evaluate_pair``) over ``EVAL_IMAGES`` synthetic
+    images at batch 1, its model column from ``ckpt`` (K2 twice an image),
+    its admm column denoising (K2 'sample') and deblurring (K2 aniso, cas
+    transform), its bm3d column on one image; the admm outputs and the
+    model's ADMM layers against the FFT loop on the card."""
+    from torch_admm_deconv_tpu_torch.data import (
+        AddAWGN,
+        CircBlur,
+        DataLoader,
+        RandCrop,
+        Scale,
+        gaussian_psf_np,
+    )
+    from torch_admm_deconv_tpu_torch.models.denoiser import flagship_divergent_restorer
+    from torch_admm_deconv_tpu_torch.ops.solver import admm_tv
+    from torch_admm_deconv_tpu_torch.scripts import eval_algs
+
+    images = [synthetic_image(rng, 3, 320, 320) * 255.0 for _ in range(EVAL_IMAGES)]
+    psf = gaussian_psf_np(9, 1.5)
+    kern = torch.from_numpy(psf.reshape(1, 1, 9, 9)).to(dev)
+    awgn = AddAWGN(std_range=(15, 16))
+    protocols = {
+        "denoise": ([RandCrop(256), Scale(), awgn], None),
+        "deblur": ([RandCrop(256), Scale(), CircBlur(psf), awgn], psf),
+    }
+    model = eval_algs.model_column(ckpt, device=dev)
+    loop_model = flagship_divergent_restorer(remat=False, use_pallas=False, device=dev)
+    loop_model.load_state_dict(model.state_dict())
+    loop_model.eval()
+    layers = {}
+    for tag, net in (("kernel", model), ("loop", loop_model)):
+        for i in range(2):
+            getattr(net.block_0, f"admm_{i}").register_forward_hook(
+                lambda mod, inp, out, key=(tag, i): layers.__setitem__(key, out))
+
+    result = {}
+    for protocol, (transforms, p) in protocols.items():
+        loader = DataLoader(SyntheticPairs(images, transforms), 1, shuffle=False, seed=0,
+                            drop_last=False)
+        columns = {"admm": eval_algs.admm_column(EVAL_LMBD, EVAL_RHO, EVAL_MAXIT, p, device=dev)}
+        if p is None:
+            columns = {"model": model, **columns}
+        rows, seconds, noisy_psnr = [], {}, []
+        admm_err = layer_err = 0.0
+        for i, (x, y) in enumerate(loader):
+            cols = dict(columns, bm3d=eval_algs.bm3d_column) if p is None and i == 0 else columns
+            outs, image_rows, secs = eval_algs.evaluate_pair(x, y, cols, device=dev)
+            rows += [{"image": i, **r} for r in image_rows]
+            for name, sec in secs.items():
+                seconds.setdefault(name, []).append(sec)
+            noisy_psnr.append(psnr(x, y))
+            xt = torch.from_numpy(x).to(dev)
+            with torch.inference_mode():
+                loop = admm_tv(xt, EVAL_LMBD, EVAL_RHO, None if p is None else kern,
+                               iso=p is None, maxit=EVAL_MAXIT, use_pallas=False, device=dev)
+                if p is None:
+                    loop_model(xt)
+                    layer_err = max(layer_err, *(max_diff(layers[("kernel", j)], layers[("loop", j)])
+                                                 for j in range(2)))
+            admm_err = max(admm_err, float(np.abs(outs["admm"] - loop.cpu().numpy()).max()))
+            require(all(np.isfinite(o).all() and o.shape == x.shape for o in outs.values()),
+                    f"eval harness {protocol}: output malformed")
+        mean_psnr = {m: float(np.mean([r["psnr"] for r in rows if r["method"] == m]))
+                     for m in seconds}
+        s_per_image = {m: statistics.mean(v) for m, v in seconds.items()}
+        for line in eval_algs.summary(rows, sum(s_per_image.values())):
+            log(f"eval harness {protocol}: {line}")
+        log(f"eval harness {protocol} ({len(noisy_psnr)} images of 3x256x256): s/image by column "
+            f"{ {m: round(v, 4) for m, v in s_per_image.items()} } (each image's "
+            f"{ {m: [round(t, 4) for t in v] for m, v in seconds.items()} }); mean PSNR noisy "
+            f"{np.mean(noisy_psnr):.3f} dB, by column {mean_psnr}; admm max|kernel - loop| "
+            f"{admm_err:.3e} (tol 1e-4)" + (f", model ADMM layers max|kernel - loop| "
+                                            f"{layer_err:.3e} (tol 1e-4)" if p is None else ""))
+        require(admm_err <= 1e-4, f"eval harness {protocol}: admm column disagrees with the "
+                                  f"loop: {admm_err}")
+        require(layer_err <= 1e-4, f"eval harness: model ADMM layers disagree with the loop: "
+                                   f"{layer_err}")
+        require(mean_psnr["admm"] > np.mean(noisy_psnr), f"eval harness {protocol}: admm column "
+                                                          "gains no PSNR")
+        if "bm3d" in mean_psnr:
+            require(mean_psnr["bm3d"] > noisy_psnr[0], "eval harness: bm3d gains no PSNR")
+        result[protocol] = {"rows": rows, "seconds": seconds, "s_per_image": s_per_image,
+                            "noisy_psnr": noisy_psnr, "mean_psnr": mean_psnr,
+                            "admm_err_vs_loop": admm_err, "model_layer_err_vs_loop": layer_err}
+    return result
+
+
+NAFNET_W64 = dict(img_channel=3, width=64, middle_blk_num=12, enc_blk_nums=(2, 2, 4, 8),
+                  dec_blk_nums=(2, 2, 2, 2))  # the eval harness's comparison configuration
+
+
+def nafnet(dev, rng):
+    """Phase 13: NAFNet w64 forward at (1, 3, 256, 256) against the same
+    weights on the CPU (TF32 off), its time and peak memory; then
+    ``scripts.train``'s NAFNet (``--arch nafnet``, width 32) trained for 2
+    steps at batch 4 on synthetic images."""
+    from torch_admm_deconv_tpu_torch.data import AddAWGN, DataLoader, RandCrop, Scale
+    from torch_admm_deconv_tpu_torch.models.nafnet import NAFNet
+    from torch_admm_deconv_tpu_torch.scripts.train import build_model, run_training
+    from torch_admm_deconv_tpu_torch.train import NNSaver, NNTrainer
+
+    gen = torch.Generator().manual_seed(0)
+    cpu_model = NAFNet(**NAFNET_W64, device="cpu", generator=gen).eval()
+    with torch.no_grad():
+        # at their zero init every block is the identity
+        for name, p in cpu_model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("beta", "gamma"):
+                p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+    x = torch.rand((1, 3, 256, 256), generator=gen)
+    model = NAFNet(**NAFNET_W64, device=dev)
+    model.load_state_dict(cpu_model.state_dict())
+    model.eval()
+    xt = x.to(dev)
+    times = []
+    with torch.inference_mode():
+        model(xt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = model(xt)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        want = cpu_model(x)
+    err = float((out.cpu() - want).abs().max())
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"NAFNet w64 [2,2,4,8]/12/[2,2,2,2] ({n_params} parameters) forward (1, 3, 256, 256): "
+        f"median {statistics.median(times):.3f} ms over 5 {[round(t, 3) for t in times]} (CUDA "
+        f"events), peak memory allocated {peak / 2**30:.3f} GiB (weights and input "
+        f"{base / 2**30:.3f}); max|card - CPU| {err:.3e} (tol 1e-4, TF32 off), max|out - in| "
+        f"{float((want - x).abs().max()):.3f}")
+    require(torch.isfinite(out).all() and out.shape == xt.shape, "NAFNet output malformed")
+    require(err <= 1e-4, f"NAFNet forward on the card disagrees with the CPU: {err}")
+
+    # the training script's model and trainer, on synthetic images
+    transforms = [RandCrop((256, 256)), Scale(), AddAWGN(std_range=(0, 15))]
+    images = [synthetic_image(rng, 3, 320, 320) * 255.0 for _ in range(12)]
+    train_loader = DataLoader(SyntheticPairs(images[:8], transforms), 4, seed=0)
+    eval_loader = DataLoader(SyntheticPairs(images[8:], transforms), 4, seed=1)
+    net = build_model("nafnet", nafnet_width=32, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_nafnet_")
+    step_s, step_peak = [], []
+    train_step = NNTrainer._train_step
+
+    def timed(self, *args):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_step(self, *args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_peak.append(torch.cuda.max_memory_allocated())
+
+    NNTrainer._train_step = timed
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = run_training(net, train_loader, eval_loader, 8.8e-4, 1,
+                                   NNSaver(out_dir, "nafnet"))
+    finally:
+        NNTrainer._train_step = train_step
+        shutil.rmtree(out_dir, ignore_errors=True)
+    logged = {k: v for k, v in trainer.logger.get_logged().items() if v}
+    log(f"NAFNet w32 training (scripts.train --arch nafnet, batch 4, 256^2): {len(step_s)} steps "
+        f"{[round(t, 3) for t in step_s]} s, peak memory {max(step_peak) / 2**30:.3f} GiB; train "
+        f"loss {logged['train_color_lab_loss']}, eval loss {logged['eval_color_lab_loss']}; "
+        f"skipped updates {trainer.skipped_updates}")
+    require(len(step_s) == 2, f"NAFNet training ran {len(step_s)} steps, not 2")
+    require(trainer.skipped_updates == 0, "NAFNet training skipped an update")
+    require(all(math.isfinite(v) for vals in logged.values() for v in vals),
+            "NAFNet training: non-finite")
+    return {"forward_ms": times, "peak_memory_bytes": peak, "weights_bytes": base,
+            "parameters": n_params, "err_vs_cpu": err, "train_step_s": step_s,
+            "train_peak_memory_bytes": step_peak, "train_logged": logged}
+
+
+def serving_script(dev, rng):
+    """Phase 14: ``scripts.infer``'s restorer and tiler on a 3x512x768 image
+    with AWGN sigma 15: ``--aniso`` (K2 at batch 8) and the default
+    isotropic 'compat' TV (the FFT loop), each with the path it reports
+    against the launches counted."""
+    from torch_admm_deconv_tpu_torch.kernels import fused_admm, vmem_solver
+    from torch_admm_deconv_tpu_torch.scripts import infer as infer_script
+
+    clean = synthetic_image(rng, 3, 512, 768)
+    noisy = clean + rng.normal(0.0, 15.0 / 255.0, clean.shape).astype(np.float32)
+    p_in = psnr(noisy, clean)
+    result = {"psnr_in": p_in}
+    for name, flags, want in (("aniso", ["--aniso"], "K2 (aniso)"), ("default", [], "FFT loop")):
+        args = infer_script.build_parser().parse_args(["--input", "-", "--output", "-", *flags])
+        apply_fn, path = infer_script.restorer(args, dev)
+        k1, k2 = fused_admm.LAUNCHES.n, vmem_solver.LAUNCHES.n
+        t0 = time.perf_counter()
+        restored, batches = infer_script.serve(noisy, apply_fn, path, args)
+        serve_s = time.perf_counter() - t0
+        k1, k2 = fused_admm.LAUNCHES.n - k1, vmem_solver.LAUNCHES.n - k2
+        p_out = psnr(restored, clean)
+        log(f"serving script {name} ({' '.join(flags) or 'no flags'}) 3x512x768: {serve_s:.3f} s, "
+            f"batches {batches}, K2 launches {k2}, K1 launches {k1}, PSNR {p_in:.3f} -> "
+            f"{p_out:.3f} dB")
+        require(np.isfinite(restored).all() and p_out > p_in, f"serving script {name} failed")
+        require(batches and all(b == want for b in batches),
+                f"serving script {name}: reported {batches}, expected {want}")
+        require(k2 == (len(batches) if want.startswith("K2") else 0) and k1 == 0,
+                f"serving script {name}: {k2} K2 and {k1} K1 launches for {batches}")
+        result[name] = {"s": serve_s, "batches": batches, "k2_launches": k2, "psnr_out": p_out}
+    return result
 
 
 def main() -> int:
@@ -1062,6 +1290,33 @@ def main() -> int:
     k2["launches_training_path"] = counters["admm_tv_vmem"].n
     require(k2["launches_training_path"] == 2,
             f"{k2['name']} was not launched twice on the training path")
+
+    # -- the fourth main path: counts set to 0 just before, read just after --
+    for counter in counters.values():
+        counter.reset()
+    t_phase = time.perf_counter()
+    try:
+        # phase 12: the eval harness, its model column from phase 11's checkpoint
+        harness = eval_harness(dev, np.random.default_rng(12), flagship_train["best_checkpoint"])
+    finally:
+        shutil.rmtree(flagship_train.pop("checkpoint_dir"), ignore_errors=True)
+    harness["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {harness['phase_s']:.1f} s")
+    t_phase = time.perf_counter()
+    # phase 13: NAFNet, the harness's comparison model, and its training
+    naf = nafnet(dev, np.random.default_rng(13))
+    naf["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13: {naf['phase_s']:.1f} s")
+    # phase 14: the serving script
+    serving = serving_script(dev, np.random.default_rng(14))
+    eval_launches = {name: c.n for name, c in counters.items()}
+    # K2: the model column twice an image, the admm column once an image in
+    # each protocol, the serving script once a batch of 8 tiles under --aniso
+    expected = 4 * EVAL_IMAGES + serving["aniso"]["k2_launches"]
+    k2["launches_eval_path"] = eval_launches["admm_tv_vmem"]
+    log(f"fourth main path (phases 12-14): launches {eval_launches}")
+    require(k2["launches_eval_path"] == expected,
+            f"{k2['name']}: {k2['launches_eval_path']} launches on the eval path, expected {expected}")
     # device operations per K2, K3 and K4 solve, last: the timed phases run
     # before any profiler session
     (k2["device_ops_per_solve"], k3["device_ops_per_solve"],
@@ -1069,6 +1324,7 @@ def main() -> int:
     log(json.dumps({"k3_cases": k3_cases, "k4_cases": k4_cases, "classical": classical,
                     "training": training}))
     log(json.dumps({"flagship_training": flagship_train}))
+    log(json.dumps({"eval_harness": harness, "nafnet": naf, "serving_script": serving}))
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

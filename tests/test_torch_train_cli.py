@@ -121,7 +121,7 @@ def test_entry_points_need_a_card_or_the_cpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_script.init_training(str(cfg), 0, 15, "runs", "tiny")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        t_script.main(["-c", str(cfg), "--device", "cpu", "--arch", "nafnet"])
+        t_script.main(["-c", str(cfg), "--device", "cpu", "--arch", "learned_prox"])
 
 
 def test_training_modules_import_without_pil_or_jax():

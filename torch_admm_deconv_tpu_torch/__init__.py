@@ -4,8 +4,10 @@ The JAX package ``torch_admm_deconv_tpu`` beside it is the reference. This
 package imports neither JAX nor that package. Its entry points run on the
 GPU unless the caller passes ``device="cpu"``; the solver's hand-written
 Hopper kernels (``kernels/``, sources in ``csrc/``) build with ``nvcc`` on
-first use. ``metrics/``, ``train/`` and ``data/`` train the flagship
-(``python -m torch_admm_deconv_tpu_torch.scripts.train``).
+first use. ``metrics/``, ``train/`` and ``data/`` train the flagship or
+NAFNet (``python -m torch_admm_deconv_tpu_torch.scripts.train``);
+``scripts.eval_algs`` is the eval harness and ``scripts.infer`` the serving
+script.
 """
 
 from torch_admm_deconv_tpu_torch.infer import (
@@ -29,7 +31,14 @@ from torch_admm_deconv_tpu_torch.models.denoiser import (
     flagship_divergent_restorer,
 )
 from torch_admm_deconv_tpu_torch.ops.implicit import admm_tv_implicit
+from torch_admm_deconv_tpu_torch.ops.prox import (
+    block_thresh,
+    hard_thresh,
+    pixelnorm,
+    soft_thresh,
+)
 from torch_admm_deconv_tpu_torch.ops.solver import (
+    ADMMState,
     AdaptiveResult,
     admm_tv,
     admm_tv_adaptive,
@@ -45,6 +54,7 @@ from torch_admm_deconv_tpu_torch.train import (
 
 __all__ = [
     "ADMMDeconv",
+    "ADMMState",
     "AdaptiveResult",
     "DataLoader",
     "DivergentRestorer",
@@ -54,6 +64,7 @@ __all__ = [
     "NNTrainer",
     "SSIMLabColorLoss",
     "adaptive_vmem_available",
+    "block_thresh",
     "admm_tv",
     "admm_tv_adaptive",
     "admm_tv_adaptive_vmem",
@@ -63,9 +74,12 @@ __all__ = [
     "cosine_annealing_warm_restarts",
     "flagship_divergent_restorer",
     "fused_elementwise_step",
+    "hard_thresh",
     "make_optimizer",
     "model_restorer",
+    "pixelnorm",
     "restore_image",
+    "soft_thresh",
     "tiled_apply",
     "tv_objective",
     "vmem_solve_available",

@@ -10,6 +10,11 @@ path is the same on both sides; only the leaf names and some layouts differ:
   the first two axes, with no flip;
 * a ``Linear`` kernel is (in, out); torch wants (out, in);
 * ``InstanceNorm2d`` ``scale`` -> ``weight``.
+
+Everything else keeps its name and layout: NAFNet's ``LayerNorm2d``
+``weight``/``bias``, its blocks' (1, c, 1, 1) ``beta`` and ``gamma``, and
+its ``up_*`` layers, which are 1x1 ``Conv2d`` kernels without bias (not
+transposed convs).
 """
 
 from __future__ import annotations

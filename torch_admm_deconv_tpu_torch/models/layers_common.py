@@ -129,6 +129,25 @@ class InstanceNorm2d(nn.Module):
         return y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
 
 
+class LayerNorm2d(nn.Module):
+    """Channel LayerNorm on NCHW: each pixel normalised over its C values,
+    eps 1e-6, then a per-channel affine (JAX layers_common.py:178-193). The
+    statistics are plain reductions in the input's dtype (float32 in the
+    models), no matmul or convolution that TF32 could touch."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = _param(torch.ones(channels), device)
+        self.bias = _param(torch.zeros(channels), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mu = x.mean(dim=1, keepdim=True)
+        var = ((x - mu) ** 2).mean(dim=1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + self.eps)
+        return y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+
+
 def same_padding(x: torch.Tensor, kernel_size: IntOrPair) -> torch.Tensor:
     """Reflect-pad so a valid conv keeps spatial dims
     (JAX layers_common.py:196-201)."""
@@ -140,6 +159,23 @@ def same_padding(x: torch.Tensor, kernel_size: IntOrPair) -> torch.Tensor:
 def max_pool2d(x: torch.Tensor, kernel: IntOrPair, stride: Optional[IntOrPair] = None) -> torch.Tensor:
     """Valid max pooling (JAX layers_common.py:204-214)."""
     return F.max_pool2d(x, _pair(kernel), _pair(stride if stride is not None else kernel))
+
+
+def avg_pool2d(x: torch.Tensor, kernel: IntOrPair,
+               stride: Optional[IntOrPair] = None) -> torch.Tensor:
+    """Valid average pooling (JAX layers_common.py:217-228)."""
+    return F.avg_pool2d(x, _pair(kernel), _pair(stride if stride is not None else kernel))
+
+
+def adaptive_avg_pool2d_1(x: torch.Tensor) -> torch.Tensor:
+    """Global average pool to (B, C, 1, 1) (JAX layers_common.py:231-233)."""
+    return x.mean(dim=(-2, -1), keepdim=True)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, C r^2, H, W) -> (B, C, H r, W r), torch's PixelShuffle order
+    (JAX layers_common.py:236-242)."""
+    return F.pixel_shuffle(x, r)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

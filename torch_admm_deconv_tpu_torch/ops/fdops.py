@@ -11,6 +11,7 @@ zero-padded PSF.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Tuple
 
 import torch
@@ -35,6 +36,20 @@ def dx_t(a: torch.Tensor) -> torch.Tensor:
 def dy_t(a: torch.Tensor) -> torch.Tensor:
     """Adjoint of :func:`dy` (JAX fdops.py:48-50)."""
     return a - torch.roll(a, -1, dims=-2)
+
+
+def conv_circular(x: torch.Tensor, w: torch.Tensor,
+                  pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """Depthwise circular cross-correlation: NCHW input, (O, 1, kh, kw)
+    kernel (one kernel shared by every channel when O is 1), ``pads`` as
+    (left, right, top, bottom) (JAX fdops.py:53-77)."""
+    left, right, top, bottom = pads
+    xp = F.pad(x, (left, right, top, bottom), mode="circular")
+    c = x.shape[1]
+    w = w.to(x.dtype)
+    if w.shape[0] == 1:
+        w = w.expand(c, 1, *w.shape[-2:])
+    return F.conv2d(xp, w, groups=c)
 
 
 def _pad_to(kern: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
@@ -87,3 +102,24 @@ def psf_otf_centered(kern: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor
 def htran_fft(x: torch.Tensor, otf_c: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
     """H^T x = irfft2(conj(OTF) * rfft2(x)) (JAX fdops.py:174-178)."""
     return torch.fft.irfft2(torch.conj(otf_c) * torch.fft.rfft2(x), s=im_shape)
+
+
+def _htran_pads(kh: int, kw: int) -> Tuple[int, int, int, int]:
+    """(left, right, top, bottom) circular pads of the H^T correlation: the
+    kernel centred at (floor((kh-1)/2), floor((kw-1)/2)) (JAX
+    fdops.py:133-145)."""
+    top, bottom = (kh - 1) // 2, kh - 1 - (kh - 1) // 2
+    left, right = (kw - 1) // 2, kw - 1 - (kw - 1) // 2
+    return (left, right, top, bottom)
+
+
+def htran_operator(kern):
+    """H^T as a callable on NCHW batches: the identity without a PSF, else
+    the depthwise circular correlation with the flipped PSF (JAX
+    fdops.py:181-193). The solver computes H^T by FFT (:func:`htran_fft`);
+    this is its spatial-domain form."""
+    if _empty(kern):
+        return lambda x: x
+    kh, kw = int(kern.shape[-2]), int(kern.shape[-1])
+    flipped = torch.flip(kern.reshape(1, 1, kh, kw), dims=(-2, -1))
+    return partial(conv_circular, w=flipped, pads=_htran_pads(kh, kw))

@@ -122,28 +122,35 @@ def admm_tv(
     dev = resolve_device(device)
     xin = torch.as_tensor(xin, device=dev)
     kern = None if kern is None else torch.as_tensor(kern, device=dev)
-    if use_pallas and not remat:
-        from torch_admm_deconv_tpu_torch.kernels.vmem_solver import (
-            admm_tv_vmem,
-            vmem_solve_available,
-        )
+    eff_mode = whole_solve_mode(xin.shape, xin.dtype, kern, iso, iso_mode, use_pallas, remat)
+    if eff_mode is not None:
+        from torch_admm_deconv_tpu_torch.kernels.vmem_solver import admm_tv_vmem
 
         shape = (1,) * (4 - xin.ndim) + tuple(xin.shape)
-        eff_mode = iso_mode
-        if iso and iso_mode == "compat" and shape[0] == 1:
-            # the batch+channel-coupled norm over one sample is exactly the
-            # channel-coupled 'sample' norm (JAX solver.py:208-212)
-            eff_mode = "sample"
-        if vmem_solve_available(shape, xin.dtype, kern, iso, eff_mode):
-            out = admm_tv_vmem(
-                xin.reshape(shape), lmbd, rho, kern, iso, maxit, iso_mode=eff_mode,
-                precision=precision, fast_frac=fast_frac, device=dev,
-            )
-            return out.reshape(xin.shape)
+        out = admm_tv_vmem(
+            xin.reshape(shape), lmbd, rho, kern, iso, maxit, iso_mode=eff_mode,
+            precision=precision, fast_frac=fast_frac, device=dev,
+        )
+        return out.reshape(xin.shape)
     return _admm_tv_scan(
         xin, lmbd, rho, kern, iso=iso, maxit=maxit, iso_mode=iso_mode,
         remat=remat, use_pallas=use_pallas,
     )
+
+
+def whole_solve_mode(shape, dtype, kern, iso: bool, iso_mode: str = "compat",
+                     use_pallas: bool = True, remat: bool = False) -> Optional[str]:
+    """The iso mode in which :func:`admm_tv` runs a call of this shape on the
+    whole-solve kernel (K2), or None when the call takes the loop. At batch
+    1 'compat' runs as 'sample': the batch+channel-coupled norm over one
+    sample is exactly the channel-coupled one (JAX solver.py:208-212)."""
+    if not use_pallas or remat:
+        return None
+    from torch_admm_deconv_tpu_torch.kernels.vmem_solver import vmem_solve_available
+
+    shape = (1,) * (4 - len(shape)) + tuple(shape)
+    eff_mode = "sample" if iso and iso_mode == "compat" and shape[0] == 1 else iso_mode
+    return eff_mode if vmem_solve_available(shape, dtype, kern, iso, eff_mode) else None
 
 
 def _admm_tv_scan(

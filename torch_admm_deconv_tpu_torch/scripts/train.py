@@ -8,7 +8,9 @@ and JSON config (``configs/train_cfg.json``: image folders, batch sizes,
 ``im_shape``, lr, epochs, an optional ``model`` override and
 ``train.ckpt``). The model is the flagship DivergentRestorer ([2, 8, 32]
 branches, 86 filters, sigmoid output, two kernel-less 100-iteration
-isotropic ADMM layers), trained with AdamW (betas 0.9/0.9), cosine warm
+isotropic ADMM layers), or with ``--arch nafnet`` the eval harness's NAFNet
+comparison model ([2, 2, 4, 8] / 12 / [2, 2, 2, 2] at ``--nafnet_width``),
+trained with AdamW (betas 0.9/0.9), cosine warm
 restarts (T_0 15000, eta_min 1e-11), ``SSIMLabColorLoss`` and the metrics
 PSNR, SCC, SSIM, MAE, UIQ. Runs on the GPU unless ``--device cpu``.
 """
@@ -44,6 +46,7 @@ from torch_admm_deconv_tpu_torch.models.denoiser import (
     DivergentRestorer,
     flagship_divergent_restorer,
 )
+from torch_admm_deconv_tpu_torch.models.nafnet import NAFNet
 from torch_admm_deconv_tpu_torch.train import (
     MetricsLogger,
     NNSaver,
@@ -54,19 +57,65 @@ from torch_admm_deconv_tpu_torch.train import (
 )
 
 
-def init_training(config_file, min_std, max_std, save_dir, model_name, device=None,
-                  resume_ckpt=None, skip_nonfinite=True, lr_override=None, arch="flagship",
-                  light_train_metrics=False, accum_steps=1, gradient_mode="unroll",
-                  blur_gaussian=0.0, blur_ksize=9):
-    """Build the data, model and trainer from the config and train; returns
-    the trainer."""
-    dev = resolve_device(device)
-    if arch != "flagship":
+def build_model(arch="flagship", model_cfg=None, nafnet_width=32, gradient_mode="unroll", *,
+                device=None, generator=None):
+    """The model ``--arch`` names, its weights drawn from ``generator``:
+    the flagship (or the DivergentRestorer of the config's ``model``
+    override), or NAFNet [2, 2, 4, 8] / 12 / [2, 2, 2, 2] at ``nafnet_width``."""
+    if arch not in ("flagship", "nafnet"):
         raise NotImplementedError(
             f"--arch {arch}: not ported yet (ROADMAP.md, queue 1 item 6, the rest of the "
             "model zoo)")
+    dev = resolve_device(device)
+    if arch == "nafnet":
+        return NAFNet(img_channel=3, width=nafnet_width, middle_blk_num=12,
+                      enc_blk_nums=(2, 2, 4, 8), dec_blk_nums=(2, 2, 2, 2), device=dev,
+                      generator=generator)
+    if model_cfg:
+        # architecture overrides from the config (the reference hardcodes
+        # the model in its script)
+        admm = {"kern_size": (), "max_iters": model_cfg.get("admm_iters", 100), "iso": True,
+                "remat": True}
+        filters = model_cfg.get("filters", 86)
+        return DivergentRestorer(
+            level_branches=model_cfg.get("level_branches", [2, 8, 32]), in_channels=3,
+            final_channels=3, filters=filters, gate_channels=filters,
+            attention_reduction=model_cfg.get("attention_reduction", 8),
+            output_activation=torch.sigmoid, admms=[dict(admm), dict(admm)], device=dev,
+            generator=generator)
+    return flagship_divergent_restorer(gradient_mode=gradient_mode, device=dev,
+                                       generator=generator)
+
+
+def run_training(model, train_loader, eval_loader, lr, epochs, saver, *, skip_nonfinite=True,
+                 light_train_metrics=False, accum_steps=1, init_params=None, resume_ckpt=None):
+    """Train ``model`` as the script does: SSIMLabColorLoss, the metrics
+    PSNR, SCC, SSIM, MAE and UIQ, AdamW at ``lr`` with warm restarts;
+    returns the trainer."""
+    lr_scheduler = cosine_annealing_warm_restarts(lr, t_0=15000, eta_min=1e-11)
+    eval_metrics = [PSNRMetric(), SCCMetric(), SSIMMetric(), MAELoss(), UIQMetric()]
+    loss_func = SSIMLabColorLoss()
+    logger = MetricsLogger(loss_func, eval_metrics)
+    trainer = NNTrainer(loss_func, eval_metrics, saver, logger,
+                        skip_nonfinite_updates=skip_nonfinite,
+                        light_train_metrics=light_train_metrics, accum_steps=accum_steps)
+    trainer.run(model, make_optimizer(lr), epochs, train_loader, eval_loader,
+                lr_scheduler=lr_scheduler, base_lr=lr, init_params=init_params,
+                resume_ckpt=resume_ckpt)
+    return trainer
+
+
+def init_training(config_file, min_std, max_std, save_dir, model_name, device=None,
+                  resume_ckpt=None, skip_nonfinite=True, lr_override=None, arch="flagship",
+                  nafnet_width=32, light_train_metrics=False, accum_steps=1,
+                  gradient_mode="unroll", blur_gaussian=0.0, blur_ksize=9):
+    """Build the data, model and trainer from the config and train; returns
+    the trainer."""
+    dev = resolve_device(device)
     with open(os.path.join(os.getcwd(), config_file)) as f:
         train_cfg = json.load(f)
+    model = build_model(arch, train_cfg.get("model", {}), nafnet_width, gradient_mode,
+                        device=dev, generator=torch.Generator().manual_seed(0))
 
     transforms = [RandCrop(tuple(train_cfg["im_shape"])), Scale()]
     if blur_gaussian > 0:
@@ -81,44 +130,17 @@ def init_training(config_file, min_std, max_std, save_dir, model_name, device=No
         dset = ImageDataset(Path(cfg["x_path"]), Path(cfg["y_path"]), transforms=transforms)
         loaders[phase] = DataLoader(dset, batch_size=cfg["batch_size"], shuffle=True)
 
-    saver = NNSaver(os.path.join(os.getcwd(), save_dir), model_name)
-    generator = torch.Generator().manual_seed(0)
-    model_cfg = train_cfg.get("model", {})
-    if model_cfg:
-        # architecture overrides from the config (the reference hardcodes
-        # the model in its script)
-        admm = {"kern_size": (), "max_iters": model_cfg.get("admm_iters", 100), "iso": True,
-                "remat": True}
-        filters = model_cfg.get("filters", 86)
-        model = DivergentRestorer(
-            level_branches=model_cfg.get("level_branches", [2, 8, 32]), in_channels=3,
-            final_channels=3, filters=filters, gate_channels=filters,
-            attention_reduction=model_cfg.get("attention_reduction", 8),
-            output_activation=torch.sigmoid, admms=[dict(admm), dict(admm)], device=dev,
-            generator=generator)
-    else:
-        model = flagship_divergent_restorer(gradient_mode=gradient_mode, device=dev,
-                                            generator=generator)
-
     init_params = None
     if train_cfg["train"].get("ckpt"):
         print("!!!!! LOADING CKPT !!!!!!!")
         init_params = load_checkpoint(train_cfg["train"]["ckpt"], map_location=dev)[
             "model_state_dict"]
-
     lr = lr_override if lr_override is not None else train_cfg["lr"]
-    lr_scheduler = cosine_annealing_warm_restarts(lr, t_0=15000, eta_min=1e-11)
-    eval_metrics = [PSNRMetric(device), SCCMetric(device), SSIMMetric(device), MAELoss(device),
-                    UIQMetric(device)]
-    loss_func = SSIMLabColorLoss(device)
-    logger = MetricsLogger(loss_func, eval_metrics)
-    trainer = NNTrainer(loss_func, eval_metrics, saver, logger,
-                        skip_nonfinite_updates=skip_nonfinite,
-                        light_train_metrics=light_train_metrics, accum_steps=accum_steps)
-    trainer.run(model, make_optimizer(lr), train_cfg["epochs"], loaders["train"],
-                loaders["eval"], lr_scheduler=lr_scheduler, base_lr=lr,
-                init_params=init_params, resume_ckpt=resume_ckpt)
-    return trainer
+    saver = NNSaver(os.path.join(os.getcwd(), save_dir), model_name)
+    return run_training(model, loaders["train"], loaders["eval"], lr, train_cfg["epochs"], saver,
+                        skip_nonfinite=skip_nonfinite, light_train_metrics=light_train_metrics,
+                        accum_steps=accum_steps, init_params=init_params,
+                        resume_ckpt=resume_ckpt)
 
 
 def main(argv=None):
@@ -142,7 +164,11 @@ def main(argv=None):
                         help="Override the config learning rate")
     parser.add_argument("--arch", choices=["flagship", "nafnet", "learned_prox"],
                         default="flagship",
-                        help="Model to train; only the flagship DivergentRestorer is ported")
+                        help="Model to train: the flagship DivergentRestorer or the NAFNet "
+                             "comparison model; learned_prox is not ported yet")
+    parser.add_argument("--nafnet_width", type=int, default=32,
+                        help="NAFNet width for --arch nafnet (the comparison checkpoint of "
+                             "the eval harness is w64)")
     parser.add_argument("--light_train_metrics", action="store_true",
                         help="Compute only loss+MSE on train steps (eval keeps the full "
                              "metric set)")
@@ -161,7 +187,7 @@ def main(argv=None):
     init_training(args.config_file, args.min_awgn, args.max_awgn, args.save_dir,
                   args.model_name, args.device, resume_ckpt=args.resume,
                   skip_nonfinite=args.skip_nonfinite, lr_override=args.lr, arch=args.arch,
-                  light_train_metrics=args.light_train_metrics,
+                  nafnet_width=args.nafnet_width, light_train_metrics=args.light_train_metrics,
                   accum_steps=args.accum_steps, gradient_mode=args.gradient_mode,
                   blur_gaussian=args.blur_gaussian, blur_ksize=args.blur_ksize)
 
