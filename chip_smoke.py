@@ -13,7 +13,11 @@ flagship trained at full width through the port's trainer, its best
 checkpoint served through the whole-solve kernel (phase 11); (4) the eval
 harness's per-image function with its model, admm and bm3d columns (phase
 12), NAFNet at the comparison width and its training script (phase 13),
-and the serving script (phase 14). It checks
+and the serving script (phase 14); (5) the learned-prox ADMM trained at
+full width through the training script, denoising and non-blind
+deblurring, each held at init against the whole-solve kernel (phase 15),
+then its eval-harness column and the rest of the model zoo, each held
+against the CPU (phase 16). It checks
 their outputs and prints one JSON line of kernel numbers and, last, one
 JSON status line. Exits non-zero, with no result line, when there is no GPU
 or a phase fails.
@@ -32,6 +36,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -876,6 +881,25 @@ def eval_harness(dev, rng, ckpt):
     return result
 
 
+def _timed_train_steps(times, peaks):
+    """Patch ``NNTrainer._train_step`` to time each step (host clock ending
+    in a synchronize) and its peak device memory; returns the undo."""
+    from torch_admm_deconv_tpu_torch.train import NNTrainer
+
+    step = NNTrainer._train_step
+
+    def timed(self, *args):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(self, *args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+
+    NNTrainer._train_step = timed
+    return lambda: setattr(NNTrainer, "_train_step", step)
+
+
 NAFNET_W64 = dict(img_channel=3, width=64, middle_blk_num=12, enc_blk_nums=(2, 2, 4, 8),
                   dec_blk_nums=(2, 2, 2, 2))  # the eval harness's comparison configuration
 
@@ -888,7 +912,7 @@ def nafnet(dev, rng):
     from torch_admm_deconv_tpu_torch.data import AddAWGN, DataLoader, RandCrop, Scale
     from torch_admm_deconv_tpu_torch.models.nafnet import NAFNet
     from torch_admm_deconv_tpu_torch.scripts.train import build_model, run_training
-    from torch_admm_deconv_tpu_torch.train import NNSaver, NNTrainer
+    from torch_admm_deconv_tpu_torch.train import NNSaver
 
     gen = torch.Generator().manual_seed(0)
     cpu_model = NAFNet(**NAFNET_W64, device="cpu", generator=gen).eval()
@@ -936,23 +960,13 @@ def nafnet(dev, rng):
                       generator=torch.Generator().manual_seed(0))
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_nafnet_")
     step_s, step_peak = [], []
-    train_step = NNTrainer._train_step
-
-    def timed(self, *args):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        train_step(self, *args)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        step_peak.append(torch.cuda.max_memory_allocated())
-
-    NNTrainer._train_step = timed
+    undo = _timed_train_steps(step_s, step_peak)
     try:
         with contextlib.redirect_stdout(io.StringIO()):
             trainer = run_training(net, train_loader, eval_loader, 8.8e-4, 1,
                                    NNSaver(out_dir, "nafnet"))
     finally:
-        NNTrainer._train_step = train_step
+        undo()
         shutil.rmtree(out_dir, ignore_errors=True)
     logged = {k: v for k, v in trainer.logger.get_logged().items() if v}
     log(f"NAFNet w32 training (scripts.train --arch nafnet, batch 4, 256^2): {len(step_s)} steps "
@@ -999,6 +1013,234 @@ def serving_script(dev, rng):
                 f"serving script {name}: {k2} K2 and {k1} K1 launches for {batches}")
         result[name] = {"s": serve_s, "batches": batches, "k2_launches": k2, "psnr_out": p_out}
     return result
+
+
+# the learned-prox ADMM of scripts/train.py --arch learned_prox at its
+# factory's width (default_learned_prox: 10 shared stages, hidden 32, depth
+# 3, remat), trained as phase 11 trains the flagship; the deblurring part
+# takes scripts/eval_algs.py's deblur protocol PSF, a 9x9 Gaussian of sigma 1.5
+LP_LR, LP_KERN, LP_SIGMA = 8.8e-4, 9, 1.5
+
+
+def learned_prox_training(dev, rng):
+    """Phase 15: the learned-prox ADMM at its full width through
+    ``scripts.train``'s ``build_model`` and ``run_training``, on phase 11's
+    synthetic images (numpy seed 11) and loader settings (batch 3, 256^2
+    crops, AWGN sigma in [0, 15)/255, SSIMLabColorLoss, AdamW at 8.8e-4):
+    (a) denoising (``--lp_kern 0``): the fresh model against K2's aniso
+    solve of the same 10 iterations, 2 epochs, then 4 steps on a fixed
+    batch at 1/100 of the LR; (b) non-blind deblurring (``--lp_kern 9
+    --lp_psf_sigma 1.5 --blur_gaussian 1.5``): no ``w``, the fresh model
+    against K2 with the PSF, 1 epoch and the 4 fixed-batch steps. Returns
+    the numbers and (a)'s best checkpoint."""
+    from torch_admm_deconv_tpu_torch.data import (
+        AddAWGN,
+        CircBlur,
+        DataLoader,
+        RandCrop,
+        Scale,
+        gaussian_psf_np,
+    )
+    from torch_admm_deconv_tpu_torch.ops.solver import admm_tv
+    from torch_admm_deconv_tpu_torch.scripts.train import build_model, run_training
+    from torch_admm_deconv_tpu_torch.train import NNSaver
+
+    images = [synthetic_image(rng, 3, 320, 320) * 255.0 for _ in range(14)]
+    psf = gaussian_psf_np(LP_KERN, LP_SIGMA)
+    kern = torch.from_numpy(psf.reshape(1, 1, LP_KERN, LP_KERN)).to(dev)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_lp_")
+    result = {"checkpoint_dir": out_dir}
+    for part, lp_kern, lp_sigma, epochs in (("denoise", 0, 0.0, 2),
+                                            ("deblur", LP_KERN, LP_SIGMA, 1)):
+        blur = [CircBlur(psf)] if lp_kern else []
+        transforms = [RandCrop((256, 256)), Scale(), *blur, AddAWGN(std_range=(0, 15))]
+        train_loader = DataLoader(SyntheticPairs(images[:6], transforms), TRAIN_BATCH, seed=0)
+        eval_loader = DataLoader(SyntheticPairs(images[6:], transforms), EVAL_BATCH, seed=1)
+        fixed = [next(iter(train_loader))]
+        model = build_model("learned_prox", lp_kern=lp_kern, lp_psf_sigma=lp_sigma, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        require("w" not in dict(model.named_parameters()),
+                f"learned prox {part}: a fixed PSF (or none) must leave no w")
+
+        # at init the output conv is zero: the classical aniso solve, on K2
+        tile = torch.from_numpy(fixed[0][0][:1]).to(dev)
+        with torch.inference_mode():
+            fresh = model(tile)
+            k2 = admm_tv(tile, 0.05, 1.0, kern if lp_kern else None, iso=False, maxit=10,
+                         use_pallas=True, device=dev)
+            times = []
+            for _ in range(5):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                model(tile)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        init_err = max_diff(fresh, k2)
+        log(f"learned prox {part} at init (1, 3, 256, 256): max|model - K2 aniso x10| "
+            f"{init_err:.3e} (tol 1e-5); forward median {statistics.median(times):.3f} ms over 5 "
+            f"{[round(t, 3) for t in times]} (CUDA events)")
+        require(init_err <= 1e-5, f"learned prox {part}: fresh model is not the aniso solve: "
+                                  f"{init_err}")
+
+        step_s, step_peak = [], []
+        undo = _timed_train_steps(step_s, step_peak)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                trainer = run_training(model, train_loader, eval_loader, LP_LR, epochs,
+                                       NNSaver(out_dir, f"lp_{part}"))
+                fixed_losses = []  # the loss before each of the 4 steps, then after the last
+                for _ in range(4):
+                    trainer.train(fixed, lambda step: FIXED_LR)
+                    fixed_losses.append(trainer.logger.get_avg_metrics("train")["color_lab_loss"])
+                trainer.eval(fixed)
+                fixed_losses.append(trainer.logger.get_avg_metrics("eval")["color_lab_loss"])
+        finally:
+            undo()
+        logged = {k: list(v) for k, v in trainer.logger.get_logged().items() if v}
+        lam_rho = {n: float(p.detach()) for n, p in model.named_parameters()
+                   if n in ("lmbda", "rho")}
+        warm = step_s[1:]
+        log(f"learned prox {part} training (batch {TRAIN_BATCH}, 256^2): {len(step_s) - 4} steps "
+            f"in {epochs} epochs and 4 on a fixed batch, warm steps (median of {len(warm)}, min-max) "
+            f"{statistics.median(warm):.4f} s [{min(warm):.4f}, {max(warm):.4f}] (first "
+            f"{step_s[0]:.4f} s), peak memory of a step {max(step_peak) / 2**30:.3f} GiB; epoch "
+            f"losses train {logged['train_color_lab_loss']} eval {logged['eval_color_lab_loss']}, "
+            f"eval PSNR {logged['eval_psnr']}; fixed batch loss at lr {FIXED_LR} "
+            f"{[round(v, 6) for v in fixed_losses]}; skipped updates {trainer.skipped_updates}; "
+            f"lambda/rho {lam_rho}")
+        require(trainer.skipped_updates == 0, f"learned prox {part}: skipped an update")
+        require(all(math.isfinite(v) for vals in logged.values() for v in vals)
+                and all(math.isfinite(v) for v in fixed_losses),
+                f"learned prox {part}: non-finite")
+        require(fixed_losses[-1] < fixed_losses[0],
+                f"learned prox {part}: the fixed-batch loss did not fall")
+        require(all(1e-12 <= v <= 5.0 for v in lam_rho.values()),
+                f"learned prox {part}: lambda or rho left [1e-12, 5]")
+        result[part] = {"init_err_vs_k2": init_err, "forward_ms": times, "step_s": step_s,
+                        "step_s_median": statistics.median(warm),
+                        "peak_memory_bytes": max(step_peak), "fixed_batch_loss": fixed_losses,
+                        "logged": logged, "lambda_rho": lam_rho}
+    best = sorted(Path(out_dir).glob("lp_denoise/*/*.tar"))
+    require(len(best) > 0, "learned prox: no checkpoint saved")
+    result["best_checkpoint"] = str(best[-1])
+    return result
+
+
+def _zoo_models(use_pallas: bool, device):
+    """The zoo at the constructions of tests/test_models.py:100-176 and
+    tests/test_misc.py:9 for a (1, 3, 256, 256) input, weights from seed 0,
+    every ADMM layer at ADMMDeconv's default 100 iterations; with
+    ``use_pallas`` they run on K2 at batch 1 ('compat' as 'sample')."""
+    from torch_admm_deconv_tpu_torch import models as zoo
+
+    admm = {"kern_size": (), "use_pallas": use_pallas}
+
+    def gelu(v):
+        return torch.nn.functional.gelu(v, approximate="tanh")
+
+    builders = {
+        "Restorer": lambda **kw: zoo.Restorer(
+            3, dict(in_channels=6, enc_out_channels=[8, 8], dec_out_channels=[8, 4],
+                    kernel_sizes=[3, 3]),
+            dict(in_channels=6, out_channels=[8, 8], kernel_sizes=[3, 3]), [dict(admm)] * 2, **kw),
+        "ADMMFusion": lambda **kw: zoo.ADMMFusion([dict(admm)] * 2, 3, **kw),
+        "ADMMFusion(with_admms)": lambda **kw: zoo.ADMMFusion([dict(admm)] * 2, 3,
+                                                              with_admms=True, **kw),
+        "RestorerV2(MultiADMM)": lambda **kw: zoo.RestorerV2(
+            3, [8, 8], [8, 8], [2, 2], admms=[dict(admm, iso=True)], **kw),
+        "Autoencoder": lambda **kw: zoo.Autoencoder(3, [8, 16], [8, 3], [3, 3],
+                                                    activation=gelu, **kw),
+        "ParallelUpsampleReduce": lambda **kw: zoo.ParallelUpsampleReduce(3, 2, 3, [3, 5, 7],
+                                                                          **kw),
+        # one processor per patch: 64^2 patches at stride 64 tile 256^2 16 times
+        "LocalAttentionPatch": lambda **kw: zoo.LocalAttentionPatch(64, 64, 16, 3, **kw),
+        "ChannelwiseVariance": lambda **kw: zoo.ChannelwiseVariance(),
+    }
+    return {name: build(device=device, generator=torch.Generator().manual_seed(0)).eval()
+            for name, build in builders.items()}
+
+
+def zoo_on_the_card(dev, rng, ckpt):
+    """Phase 16: the learned-prox column of the eval harness
+    (``eval_algs.evaluate_pair`` with ``learned_prox_column``, as
+    ``--model learned_prox`` builds it) from phase 15's best denoising
+    checkpoint on phase 12's 4 synthetic images; then each zoo model's
+    forward at (1, 3, 256, 256) on the card (its ADMM layers on K2) against
+    the same weights on the CPU, TF32 off, and its ADMM layers against a
+    loop-path copy on the card. Returns the numbers and K2's expected
+    launches."""
+    from torch_admm_deconv_tpu_torch.data import AddAWGN, DataLoader, RandCrop, Scale
+    from torch_admm_deconv_tpu_torch.kernels import vmem_solver
+    from torch_admm_deconv_tpu_torch.models import ADMMDeconv
+    from torch_admm_deconv_tpu_torch.scripts import eval_algs
+
+    images = [synthetic_image(rng, 3, 320, 320) * 255.0 for _ in range(EVAL_IMAGES)]
+    transforms = [RandCrop(256), Scale(), AddAWGN(std_range=(15, 16))]
+    loader = DataLoader(SyntheticPairs(images, transforms), 1, shuffle=False, seed=0,
+                        drop_last=False)
+    columns = {"model": eval_algs.learned_prox_column(ckpt, 0, 0.0, device=dev)}
+    rows, seconds, noisy_psnr = [], [], []
+    for i, (x, y) in enumerate(loader):
+        outs, image_rows, secs = eval_algs.evaluate_pair(x, y, columns, device=dev)
+        require(np.isfinite(outs["model"]).all() and outs["model"].shape == x.shape,
+                "learned-prox column: output malformed")
+        rows += [{"image": i, **r} for r in image_rows]
+        seconds.append(secs["model"])
+        noisy_psnr.append(psnr(x, y))
+    column = {"s_per_image": statistics.mean(seconds), "seconds": seconds,
+              "mean_psnr": float(np.mean([r["psnr"] for r in rows])),
+              "noisy_psnr": float(np.mean(noisy_psnr)), "rows": rows}
+    for line in eval_algs.summary(rows, column["s_per_image"]):
+        log(f"learned-prox column (--model learned_prox): {line}")
+    log(f"learned-prox column ({len(rows)} images of 3x256x256): {column['s_per_image']:.4f} "
+        f"s/image {[round(t, 4) for t in seconds]}, mean PSNR {column['mean_psnr']:.3f} dB, "
+        f"noisy {column['noisy_psnr']:.3f} dB")
+
+    x = torch.from_numpy(synthetic_image(rng, 3, 256, 256)[None])
+    x = x + 15.0 / 255.0 * torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    xt = x.to(dev)
+    kernel_models, loop_models = _zoo_models(True, dev), _zoo_models(False, dev)
+    cpu_models = _zoo_models(True, "cpu")
+    expected_k2 = 0
+    zoo = {}
+    for name, model in kernel_models.items():
+        admms = [m for m in model.modules() if isinstance(m, ADMMDeconv)]
+        expected_k2 += len(admms)
+        loop, cpu = loop_models[name], cpu_models[name]
+        loop.load_state_dict(model.state_dict())
+        cpu.load_state_dict(model.state_dict())
+        layers = {}
+        for tag, net in (("kernel", model), ("loop", loop)):
+            for j, m in enumerate(mm for mm in net.modules() if isinstance(mm, ADMMDeconv)):
+                m.register_forward_hook(
+                    lambda mod, inp, out, key=(tag, j): layers.__setitem__(key, out))
+        with torch.inference_mode():
+            before = vmem_solver.LAUNCHES.n
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = model(xt)
+            end.record()
+            end.synchronize()
+            launched = vmem_solver.LAUNCHES.n - before
+            loop(xt)
+            want = cpu(x)
+        err = float((out.cpu() - want).abs().max())
+        layer_err = max((max_diff(layers[("kernel", j)], layers[("loop", j)])
+                         for j in range(len(admms))), default=0.0)
+        zoo[name] = {"shape": list(out.shape), "err_vs_cpu": err, "admm_layers": len(admms),
+                     "admm_err_vs_loop": layer_err, "k2_launches": launched,
+                     "first_forward_ms": start.elapsed_time(end)}
+        log(f"zoo {name} (1, 3, 256, 256) -> {tuple(out.shape)}: max|card - CPU| {err:.3e} "
+            f"(tol 1e-4, TF32 off); {len(admms)} ADMM layers, K2 launches {launched}, "
+            f"max|kernel - loop| {layer_err:.3e} (tol 1e-4); first forward "
+            f"{zoo[name]['first_forward_ms']:.3f} ms (CUDA events)")
+        require(torch.isfinite(out).all(), f"zoo {name}: non-finite output")
+        require(launched == len(admms), f"zoo {name}: {launched} K2 launches for {len(admms)} "
+                                        "ADMM layers")
+        require(layer_err <= 1e-4, f"zoo {name}: ADMM layers disagree with the loop: {layer_err}")
+        require(err <= 1e-4, f"zoo {name}: the card disagrees with the CPU: {err}")
+    return {"learned_prox_column": column, "zoo": zoo, "expected_k2": expected_k2}
 
 
 def main() -> int:
@@ -1317,6 +1559,30 @@ def main() -> int:
     log(f"fourth main path (phases 12-14): launches {eval_launches}")
     require(k2["launches_eval_path"] == expected,
             f"{k2['name']}: {k2['launches_eval_path']} launches on the eval path, expected {expected}")
+    # -- the fifth main path: counts set to 0 just before, read just after ---
+    for counter in counters.values():
+        counter.reset()
+    t_phase = time.perf_counter()
+    # phase 15: the learned-prox ADMM trained at its full width
+    learned = learned_prox_training(dev, np.random.default_rng(11))
+    learned["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {learned['phase_s']:.1f} s")
+    t_phase = time.perf_counter()
+    try:
+        # phase 16: its eval-harness column, and the rest of the zoo on the card
+        zoo = zoo_on_the_card(dev, np.random.default_rng(16), learned["best_checkpoint"])
+    finally:
+        shutil.rmtree(learned.pop("checkpoint_dir"), ignore_errors=True)
+    zoo["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {zoo['phase_s']:.1f} s")
+    zoo_launches = {name: c.n for name, c in counters.items()}
+    # K2: the two init gates of phase 15 (aniso, without and with the PSF),
+    # then one launch per ADMM layer of the zoo's forwards on the card
+    expected = 2 + zoo.pop("expected_k2")
+    k2["launches_zoo_path"] = zoo_launches["admm_tv_vmem"]
+    log(f"fifth main path (phases 15-16): launches {zoo_launches}")
+    require(k2["launches_zoo_path"] == expected,
+            f"{k2['name']}: {k2['launches_zoo_path']} launches on the zoo path, expected {expected}")
     # device operations per K2, K3 and K4 solve, last: the timed phases run
     # before any profiler session
     (k2["device_ops_per_solve"], k3["device_ops_per_solve"],
@@ -1325,6 +1591,7 @@ def main() -> int:
                     "training": training}))
     log(json.dumps({"flagship_training": flagship_train}))
     log(json.dumps({"eval_harness": harness, "nafnet": naf, "serving_script": serving}))
+    log(json.dumps({"learned_prox": learned, "zoo": zoo}))
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -16,8 +16,10 @@ import torch
 from tests._threads import one_torch_thread, single_thread_env  # noqa: F401 (autouse)
 from tests.test_torch_train_cli import _corpus
 from torch_admm_deconv_tpu_torch.models.denoiser import flagship_divergent_restorer
+from torch_admm_deconv_tpu_torch.models.learned_prox import default_learned_prox
 from torch_admm_deconv_tpu_torch.models.nafnet import NAFNet
 from torch_admm_deconv_tpu_torch.ops import bm3d as t_bm3d
+from torch_admm_deconv_tpu_torch.ops.solver import admm_tv
 from torch_admm_deconv_tpu_torch.scripts import eval_algs as t_eval
 from torch_admm_deconv_tpu_torch.scripts import infer as t_infer
 
@@ -79,10 +81,11 @@ def test_eval_script_matches_jax(tmp_path, protocol):
     assert (tmp_path / "port" / "002_admm.png").exists()
 
 
-def test_evaluate_pair_columns_and_the_summary(rng):
+def test_evaluate_pair_columns_and_the_summary(rng, tmp_path):
     """The per-image function with the admm and bm3d columns on arrays: each
     column beats the noisy input's PSNR; the summary's PSNR is that of the
-    mean MSE; an unported column raises with its roadmap item."""
+    mean MSE; the learned-prox column from a checkpoint of a fresh model is
+    the 10-iteration anisotropic solve (within 1e-5)."""
     clean = np.clip(0.5 + 0.2 * rng.standard_normal((1, 3, 6, 6)).repeat(8, 2).repeat(8, 3), 0, 1)
     noisy = (clean + 15 / 255 * rng.standard_normal(clean.shape)).astype(np.float32)
     columns = {"admm": t_eval.admm_column(0.05, 1.0, 50, device="cpu"),
@@ -97,8 +100,15 @@ def test_evaluate_pair_columns_and_the_summary(rng):
         np.testing.assert_allclose(r["psnr"], 10 * np.log10(1 / r["mse"]), rtol=1e-5)
     (line,) = [s for s in t_eval.summary([{"image": 0, **rows[0]}], 1.0)]
     assert f"PSNR(from mean MSE)={10 * np.log10(1 / rows[0]['mse']):.3f} dB" in line
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        t_eval.main(["--x_dir", ".", "--y_dir", ".", "--model", "learned_prox", "--device", "cpu"])
+    fresh = default_learned_prox(device="cpu", generator=torch.Generator().manual_seed(0))
+    torch.save({"epoch": 0, "model_state_dict": fresh.state_dict(), "loss": 0.0},
+               tmp_path / "lp.tar")
+    column = t_eval.learned_prox_column(tmp_path / "lp.tar", device="cpu")
+    outs, (row,), _ = t_eval.evaluate_pair(noisy, clean.astype(np.float32), {"model": column},
+                                           device="cpu")
+    want = admm_tv(torch.from_numpy(noisy), 0.05, 1.0, None, iso=False, maxit=10, device="cpu")
+    assert row["method"] == "model" and row["psnr"] > p_noisy
+    assert np.abs(outs["model"] - want.numpy()).max() <= 1e-5
 
 
 def test_eval_script_model_and_nafnet_columns(tmp_path):

@@ -21,6 +21,7 @@ as two products or as one product of depth 2w) already differ by more than
 plain version; the solve is held to 1e-3, half the card's 2e-3 bar.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,6 +29,7 @@ from tests._threads import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_k4_k1 import _motion_psf, _noisy
 from tests.test_torch_tc_numerics import mm_bf16, split
 from torch_admm_deconv_tpu_torch.kernels import vmem_solver as t_vmem
+from torch_admm_deconv_tpu_torch.ops import fdops
 
 CHUNK = 32  # the kernel's depth step between shared-memory stages
 MMA_K = {True: 16, False: 8}  # depth of one tensor-core step: bf16, tf32
@@ -128,3 +130,47 @@ def test_two_plain_summation_orders_already_differ_by_more_than_2e4(pair_solve):
                                     100, fast)
         err = float((other - want).abs().max())
         assert lo < err <= hi, (precision, err)
+
+
+@pytest.mark.parametrize("rot", [0, 1])
+def test_mixed_pair_solve_reaches_the_plain_psnr(rot):
+    """'mixed' held by the PSNR it reaches (hazard H4), a bar no summation
+    order moves. A clean piecewise-constant 2 x 40 x 56 image (numpy seed
+    7), blurred circularly with the one-sided motion PSF (the Hartley pair)
+    and given noise of sigma 0.01, deblurred with lambda 0.002, rho 0.5 at
+    100 iterations: the kernel-order emulation and
+    ``admm_tv_vmem_interleaved_plain`` (held against JAX in
+    tests/test_torch_k4_emulation.py), both in 'mixed', reach the same PSNR
+    against the clean image within 0.05 dB (measured 0.0013 and 0.020 dB for
+    rot 0 and 1). The margin is a quarter of what 'mixed' itself costs
+    against 'high' on this input (measured 0.199 dB; 1.14 dB in
+    benchmarks/mixed_precision_r5.md §2); the test asserts that cost is
+    above three margins, so the bar separates the two precisions."""
+    rng = np.random.default_rng(7)
+    clean = np.full((2, 1, 40, 56), 0.2, np.float32)
+    for plane in clean[:, 0]:
+        for _ in range(8):
+            y0, x0 = rng.integers(0, 32), rng.integers(0, 48)
+            plane[y0:y0 + rng.integers(4, 16), x0:x0 + rng.integers(4, 20)] = rng.uniform(0.1, 0.9)
+    clean = torch.from_numpy(clean)
+    kern = torch.from_numpy(_motion_psf())
+    otf = fdops.psf_otf_centered(kern, (40, 56))
+    blurred = torch.fft.irfft2(otf * torch.fft.rfft2(clean), s=(40, 56))
+    noisy = blurred + torch.from_numpy((0.01 * rng.standard_normal(clean.shape)).astype(np.float32))
+
+    def psnr(v):
+        return float(10 * torch.log10(1 / torch.mean((v - clean) ** 2)))
+
+    hty, freq, rho, tau, mats = t_vmem.solve_inputs(noisy, 0.002, 0.5, kern)
+    assert len(mats) == 4
+
+    def plain(precision):
+        fast = t_vmem.fast_iterations(precision, 0.75, 100)
+        return t_vmem.admm_tv_vmem_interleaved_plain(hty, freq, mats, rho, tau, None, 100, fast)
+
+    fast = t_vmem.fast_iterations("mixed", 0.75, 100)
+    emulated = t_vmem._fixed_plain(k4_pair_xform(rot), hty, freq, mats, rho, tau, None, 100, fast)
+    p_mixed, p_high = psnr(plain("mixed")), psnr(plain("high"))
+    assert psnr(emulated) > psnr(noisy) + 10.0
+    assert abs(psnr(emulated) - p_mixed) <= 0.05
+    assert p_high - p_mixed > 3 * 0.05

@@ -110,8 +110,9 @@ def test_train_script_one_epoch_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_entry_points_need_a_card_or_the_cpu(tmp_path, monkeypatch):
-    """Without ``--device cpu`` and without a card the script raises; an
-    architecture not ported yet raises and names the roadmap item."""
+    """Without ``--device cpu`` and without a card the script raises; with
+    ``--device cpu`` ``--arch learned_prox`` trains its epoch there and
+    writes a checkpoint."""
     root = _corpus(tmp_path, n_train=2, n_eval=2)
     cfg = _config(root)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -120,8 +121,10 @@ def test_entry_points_need_a_card_or_the_cpu(tmp_path, monkeypatch):
         t_script.main(["-c", str(cfg)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_script.init_training(str(cfg), 0, 15, "runs", "tiny")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        t_script.main(["-c", str(cfg), "--device", "cpu", "--arch", "learned_prox"])
+    t_script.main(["-c", str(cfg), "--device", "cpu", "--arch", "learned_prox", "-s", "runs",
+                   "-n", "lp"])
+    (ckpt,) = (tmp_path / "runs" / "lp").glob("*/lp_epoch00_vloss*.tar")
+    assert {"lmbda", "rho", "prox.conv_out.weight"} <= set(load_checkpoint(ckpt)["model_state_dict"])
 
 
 def test_training_modules_import_without_pil_or_jax():

@@ -3,18 +3,25 @@
 The port's modules carry the JAX package's module names, so a parameter's
 path is the same on both sides; only the leaf names and some layouts differ:
 
-* ``Conv2d`` kernels are OIHW on both sides: ``kernel`` -> ``weight``;
-* a ``ConvTranspose2d`` kernel (only ``up_conv`` in the ported models) is
-  stored (out, in, kh, kw) and flipped at apply time in JAX
-  (layers_common.py:117-131); torch's (in, out, kh, kw) is its transpose in
-  the first two axes, with no flip;
+* ``Conv2d`` kernels are OIHW on both sides, and ``Conv1d`` kernels
+  (``local_patch.py``) OIH: ``kernel`` -> ``weight``;
+* a ``ConvTranspose2d`` kernel (``up_conv`` of the up blocks and
+  ``conv2d_b_1`` of ``PatchProcessor``) is stored (out, in, kh, kw) and
+  flipped at apply time in JAX (layers_common.py:117-131); torch's (in,
+  out, kh, kw) is its transpose in the first two axes, with no flip;
 * a ``Linear`` kernel is (in, out); torch wants (out, in);
 * ``InstanceNorm2d`` ``scale`` -> ``weight``.
 
-Everything else keeps its name and layout: NAFNet's ``LayerNorm2d``
-``weight``/``bias``, its blocks' (1, c, 1, 1) ``beta`` and ``gamma``, and
-its ``up_*`` layers, which are 1x1 ``Conv2d`` kernels without bias (not
-transposed convs).
+Everything else keeps its name and layout: ``LayerNorm2d``'s
+``weight``/``bias``, NAFNet's (1, c, 1, 1) ``beta`` and ``gamma`` and its
+``up_*`` layers (1x1 ``Conv2d`` kernels without bias, not transposed
+convs), the (1,) ``lmbda``/``rho``/``b`` and the (1, 1, kh, kw) PSF ``w``
+of the ADMM layers and of ``LearnedProxADMM``. The trees checked against
+the JAX package (tests/test_torch_*.py): ADMMDeconv, CBAM,
+ChannelWiseAttention, DivergentRestorer, NAFNet, DepthwiseDownBlock,
+MultiScaleConvPool, ParallelUpsampleReduce, LocalAttentionPatch,
+Autoencoder, UpDownScale, Restorer, Deconvs, ADMMFusion, RestorerV2 and
+LearnedProxADMM.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-CONV_TRANSPOSE_NAMES = frozenset({"up_conv"})
+CONV_TRANSPOSE_NAMES = frozenset({"up_conv", "conv2d_b_1"})
 
 
 def _walk(tree: Mapping, prefix=()):

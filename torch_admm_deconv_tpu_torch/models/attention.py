@@ -185,6 +185,14 @@ def channel_pool(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([std, med, mode], dim=1)
 
 
+class ChannelPool(nn.Module):
+    """Module form of :func:`channel_pool`, no parameters
+    (JAX attention.py:247-253)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return channel_pool(x)
+
+
 class SpatialGate(nn.Module):
     """x * sigmoid(conv(channel_pool(x))) (JAX attention.py:256-274)."""
 

@@ -1,7 +1,8 @@
 """Composite blocks for the restoration models.
 
-Counterpart of torch_admm_deconv_tpu/models/blocks.py, with the flagship
-``DivergentAttention`` and its two quirks kept:
+Counterpart of torch_admm_deconv_tpu/models/blocks.py: the channel-wiring
+helpers, the up / down blocks, ``MultiScaleConvPool``, ``MultiADMM`` and the
+flagship ``DivergentAttention`` with its two quirks kept:
 
 * the conv list interleaves a 1x1 conv (even index) and an ``UpDownBlock``
   (odd index) per branch; with ADMM front-ends the zip truncates it to the
@@ -14,21 +15,66 @@ Counterpart of torch_admm_deconv_tpu/models/blocks.py, with the flagship
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from torch_admm_deconv_tpu_torch.models.admm_deconv import ADMMDeconv
-from torch_admm_deconv_tpu_torch.models.attention import CBAM
+from torch_admm_deconv_tpu_torch.models.attention import CBAM, AttentionChannelPooling
 from torch_admm_deconv_tpu_torch.models.layers_common import (
     Conv2d,
     ConvTranspose2d,
     IntOrPair,
+    _pair,
     max_pool2d,
+    same_padding,
     xavier_normal_conv,
 )
+
+
+# channel-wiring helpers (JAX blocks.py:44-92)
+
+
+def compute_residual_dec_input_channels(enc_out_channels: List[int],
+                                        dec_out_channels: List[int]) -> List[int]:
+    """Decoder input widths: the deepest encoder output, then each skip
+    concatenated with the previous decoder output."""
+    rev = enc_out_channels[::-1]
+    return [rev[0]] + [e + d for e, d in zip(rev[1:], dec_out_channels[:-1])]
+
+
+def compute_enc_input_channels(in_channels: int, enc_out_channels: List[int]) -> List[int]:
+    return [in_channels] + enc_out_channels[:-1]
+
+
+def compute_depth_enc_in_out_channels(in_channels: int,
+                                      enc_out_channels: List[int]) -> Tuple[List[int], List[int]]:
+    """Depthwise encoder widths: each block multiplies the width by its
+    factor."""
+    res = [in_channels]
+    for i, k in enumerate(enc_out_channels):
+        res.append(k * res[i])
+    return res[:-1], res[1:]
+
+
+def conv2d_pooling_output_shape(input_shape, kernel_size, stride=1, padding=0, dilation=1,
+                                pooling_size=None, pooling_stride=None,
+                                pooling_padding=0) -> Tuple[int, int]:
+    """(H, W) after a conv and an optional pool."""
+    (kh, kw), (sh, sw) = _pair(kernel_size), _pair(stride)
+    (ph, pw), (dh, dw) = _pair(padding), _pair(dilation)
+    h, w = input_shape
+    oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    ow = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    if pooling_size is not None:
+        pkh, pkw = _pair(pooling_size)
+        psh, psw = _pair(pooling_stride if pooling_stride is not None else pooling_size)
+        pph, ppw = _pair(pooling_padding)
+        oh = (oh + 2 * pph - pkh) // psh + 1
+        ow = (ow + 2 * ppw - pkw) // psw + 1
+    return oh, ow
 
 
 def _post(x, normalization, activation, pool_size):
@@ -74,6 +120,24 @@ class UpBlock(nn.Module):
         return _post(self.up_conv(x), self.normalization, self.activation, self.pool_size)
 
 
+class DepthwiseDownBlock(nn.Module):
+    """Grouped conv (``groups=in_channels``, pad pool_size-1) -> act -> pool
+    (JAX blocks.py:150-177)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntOrPair,
+                 activation: Optional[Callable] = None, pool_size: int = 0,
+                 use_bias: bool = True, *, device=None, generator=None):
+        super().__init__()
+        self.activation, self.pool_size = activation, pool_size
+        self.depth_conv = Conv2d(in_channels, out_channels, kernel_size,
+                                 padding=max(0, pool_size - 1), groups=in_channels,
+                                 use_bias=use_bias, kernel_init=xavier_normal_conv,
+                                 device=device, generator=generator)
+
+    def forward(self, x):
+        return _post(self.depth_conv(x), None, self.activation, self.pool_size)
+
+
 class UpDownBlock(nn.Module):
     """Transposed conv up -> 1x1 -> conv down -> 1x1, plus a 1x1 residual
     (JAX blocks.py:180-215)."""
@@ -95,6 +159,26 @@ class UpDownBlock(nn.Module):
     def forward(self, x):
         y = self.chc2(self.down_block(self.chc(self.up_block(x))))
         return self.chx(x) + y
+
+
+class MultiScaleConvPool(nn.Module):
+    """Reflect-padded convs at several kernel sizes in parallel, concatenated,
+    then attention channel pooling down to ``out_channels``
+    (JAX blocks.py:218-238)."""
+
+    def __init__(self, in_channels: int, out_channels: int, filters: int, ks: Sequence[int],
+                 *, device=None, generator=None):
+        super().__init__()
+        self.ks = list(ks)
+        for i, k in enumerate(self.ks):
+            self.add_module(f"conv_{i}", Conv2d(in_channels, filters, k, use_bias=True,
+                                                device=device, generator=generator))
+        self.cwa_pool = AttentionChannelPooling(filters * len(self.ks), out_channels,
+                                                device=device, generator=generator)
+
+    def forward(self, x):
+        feats = [getattr(self, f"conv_{i}")(same_padding(x, k)) for i, k in enumerate(self.ks)]
+        return self.cwa_pool(torch.cat(feats, dim=1))
 
 
 class MultiADMM(nn.Module):

@@ -18,6 +18,10 @@ from torch_admm_deconv_tpu_torch._device import resolve_device
 from torch_admm_deconv_tpu_torch.models.attention import ChannelWiseAttention
 from torch_admm_deconv_tpu_torch.models.blocks import DivergentAttention, _maybe_checkpoint
 
+# the reference's two ADMM front-end configs (JAX denoiser.py:28-29)
+DECONV1 = {"kern_size": (), "max_iters": 100, "iso": True}
+DECONV2 = {"kern_size": (), "max_iters": 100, "iso": True}
+
 
 class DivergentRestorer(nn.Module):
     """``remat_levels`` recomputes whole levels (and each branch's attention)

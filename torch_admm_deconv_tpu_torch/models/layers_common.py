@@ -11,7 +11,7 @@ torch wants it, a linear weight is (out, in).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +36,11 @@ def xavier_normal_conv(shape, generator=None) -> torch.Tensor:
     o, i, kh, kw = shape
     std = math.sqrt(2.0 / (i * kh * kw + o * kh * kw))
     return std * torch.randn(shape, generator=generator)
+
+
+#: the reference's ``default_init_weights`` (xavier normal over conv kernels),
+#: an initializer here as in JAX (layers_common.py:43-46)
+default_init_weights = xavier_normal_conv
 
 
 def kaiming_uniform_conv(shape, generator=None) -> torch.Tensor:
@@ -176,6 +181,62 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """(B, C r^2, H, W) -> (B, C, H r, W r), torch's PixelShuffle order
     (JAX layers_common.py:236-242)."""
     return F.pixel_shuffle(x, r)
+
+
+def _cubic_resize_matrix(n_in: int, scale: int) -> torch.Tensor:
+    """(n_in * scale, n_in) weights of ``jax.image.resize(method="cubic")``
+    along one axis (jax/_src/image/scale.py ``compute_weight_mat``): Keys'
+    cubic with a = -0.5 at half-pixel centres, each output's weights divided
+    by their sum (which renormalises them at the borders). Built in float64
+    and rounded once."""
+    n_out = n_in * scale
+    sample = (torch.arange(n_out, dtype=torch.float64) + 0.5) / scale - 0.5
+    x = (sample[:, None] - torch.arange(n_in, dtype=torch.float64)[None, :]).abs()
+    w = ((1.5 * x - 2.5) * x) * x + 1.0
+    w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
+    w = torch.where(x >= 2.0, torch.zeros_like(w), w)
+    return w / w.sum(dim=1, keepdim=True)
+
+
+def interpolate_bicubic(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bicubic upsample of NCHW by an integer factor, as the JAX package's
+    ``jax.image.resize(..., method="cubic")`` (JAX layers_common.py:245-249).
+    Not ``F.interpolate(mode="bicubic")``, whose kernel has a = -0.75 and
+    which clamps indices at the borders instead of renormalising."""
+    h, w = x.shape[-2:]
+    rows = _cubic_resize_matrix(h, scale).to(device=x.device, dtype=x.dtype)
+    cols = _cubic_resize_matrix(w, scale).to(device=x.device, dtype=x.dtype)
+    return rows @ x @ cols.t()
+
+
+def unfold(x: torch.Tensor, kernel: IntOrPair, stride: IntOrPair) -> torch.Tensor:
+    """NCHW -> (B, C*kh*kw, L) valid patches, channel-major
+    (JAX layers_common.py:252-266)."""
+    return F.unfold(x, _pair(kernel), stride=_pair(stride))
+
+
+def fold(patches: torch.Tensor, output_size: Tuple[int, int], kernel: IntOrPair,
+         stride: IntOrPair) -> torch.Tensor:
+    """(B, C*kh*kw, L) -> NCHW with overlap-add (JAX layers_common.py:269-283)."""
+    return F.fold(patches, tuple(output_size), _pair(kernel), stride=_pair(stride))
+
+
+class Sequential(nn.Module):
+    """Apply ``layers`` in turn; modules among them are registered as
+    ``layers_{i}``, Flax's names for a list attribute's entries
+    (JAX layers_common.py:286-292)."""
+
+    def __init__(self, layers: Sequence[Callable]):
+        super().__init__()
+        self.layers = list(layers)
+        for i, layer in enumerate(self.layers):
+            if isinstance(layer, nn.Module):
+                self.add_module(f"layers_{i}", layer)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

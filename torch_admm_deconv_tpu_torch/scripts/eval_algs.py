@@ -11,6 +11,9 @@ blurred circularly with a Gaussian PSF and given AWGN of sigma in
 
 * ``model``: the flagship DivergentRestorer from a checkpoint of the port's
   trainer (``--ckpt``), its ADMM layers on the whole-solve kernel on the GPU;
+  or, with ``--model learned_prox``, the learned-prox ADMM from such a
+  checkpoint, built as the train script builds it (``--lp_kern``,
+  ``--lp_psf_sigma``);
 * ``admm``: the classical TV-ADMM solver (isotropic TV denoising, or
   anisotropic with the true PSF under ``--blur_gaussian``), on the
   whole-solve kernel on the GPU;
@@ -74,6 +77,21 @@ def model_column(ckpt, model_cfg: Optional[dict] = None, *, device=None) -> Call
             output_activation=torch.sigmoid, admms=[dict(admm), dict(admm)], device=dev)
     else:
         model = flagship_divergent_restorer(remat=False, use_pallas=use_pallas, device=dev)
+    model.load_state_dict(load_checkpoint(ckpt, map_location=dev)["model_state_dict"])
+    return model.eval()
+
+
+def learned_prox_column(ckpt, lp_kern: int = 0, lp_psf_sigma: float = 0.0, *,
+                        device=None) -> Callable:
+    """The learned-prox ADMM with the checkpoint's weights, from the factory
+    and flags the train script uses (JAX eval_algs.py:154-165)."""
+    from torch_admm_deconv_tpu_torch.models.learned_prox import default_learned_prox
+    from torch_admm_deconv_tpu_torch.scripts.train import learned_prox_psf
+    from torch_admm_deconv_tpu_torch.train import load_checkpoint
+
+    dev = resolve_device(device)
+    model = default_learned_prox(kern=lp_kern, psf=learned_prox_psf(lp_kern, lp_psf_sigma),
+                                 device=dev)
     model.load_state_dict(load_checkpoint(ckpt, map_location=dev)["model_state_dict"])
     return model.eval()
 
@@ -161,7 +179,7 @@ def main(argv=None):
     parser.add_argument("--model", default="divergent",
                         choices=["divergent", "classical", "learned_prox"],
                         help="divergent: DivergentRestorer ckpt; classical: TV-ADMM solver; "
-                             "learned_prox: not ported yet")
+                             "learned_prox: learned-prox ADMM ckpt (--lp_kern, --lp_psf_sigma)")
     parser.add_argument("--crop", type=int, default=256)
     parser.add_argument("--awgn", type=int, default=15, help="AWGN sigma added to x (0=off)")
     parser.add_argument("--lmbd", type=float, default=0.05)
@@ -185,10 +203,6 @@ def main(argv=None):
     parser.add_argument("--bm3d", action=argparse.BooleanOptionalAction, default=True,
                         help="include the BM3D column (ops/bm3d.py); --no-bm3d skips it")
     args = parser.parse_args(argv)
-    if args.model == "learned_prox":
-        raise NotImplementedError(
-            "--model learned_prox: not ported yet (ROADMAP.md, queue 1 item 6, the rest of "
-            "the model zoo)")
 
     from torch_admm_deconv_tpu_torch.data import (
         AddAWGN,
@@ -218,6 +232,9 @@ def main(argv=None):
     if args.model == "divergent" and args.ckpt:
         model_cfg = json.loads(Path(args.model_cfg).read_text()) if args.model_cfg else None
         columns["model"] = model_column(args.ckpt, model_cfg, device=dev)
+    elif args.model == "learned_prox" and args.ckpt:
+        columns["model"] = learned_prox_column(args.ckpt, args.lp_kern, args.lp_psf_sigma,
+                                               device=dev)
     else:
         columns["admm"] = admm_column(args.lmbd, args.rho, args.maxit, psf, device=dev)
     if args.nafnet_ckpt:

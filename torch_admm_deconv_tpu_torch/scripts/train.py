@@ -10,9 +10,13 @@ and JSON config (``configs/train_cfg.json``: image folders, batch sizes,
 branches, 86 filters, sigmoid output, two kernel-less 100-iteration
 isotropic ADMM layers), or with ``--arch nafnet`` the eval harness's NAFNet
 comparison model ([2, 2, 4, 8] / 12 / [2, 2, 2, 2] at ``--nafnet_width``),
-trained with AdamW (betas 0.9/0.9), cosine warm
-restarts (T_0 15000, eta_min 1e-11), ``SSIMLabColorLoss`` and the metrics
-PSNR, SCC, SSIM, MAE, UIQ. Runs on the GPU unless ``--device cpu``.
+or with ``--arch learned_prox`` the unrolled learned-prox
+ADMM of BASELINE.json config 4 (``default_learned_prox``: 10 shared stages,
+hidden 32; ``--lp_kern N`` a PSF of N x N, fixed to a Gaussian of sigma
+``--lp_psf_sigma`` when that is > 0, learnable otherwise), trained with
+AdamW (betas 0.9/0.9), cosine warm restarts (T_0 15000, eta_min 1e-11),
+``SSIMLabColorLoss`` and the metrics PSNR, SCC, SSIM, MAE, UIQ. Runs on the
+GPU unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from torch_admm_deconv_tpu_torch.models.denoiser import (
     DivergentRestorer,
     flagship_divergent_restorer,
 )
+from torch_admm_deconv_tpu_torch.models.learned_prox import default_learned_prox
 from torch_admm_deconv_tpu_torch.models.nafnet import NAFNet
 from torch_admm_deconv_tpu_torch.train import (
     MetricsLogger,
@@ -57,16 +62,23 @@ from torch_admm_deconv_tpu_torch.train import (
 )
 
 
-def build_model(arch="flagship", model_cfg=None, nafnet_width=32, gradient_mode="unroll", *,
-                device=None, generator=None):
+def learned_prox_psf(lp_kern: int, lp_psf_sigma: float):
+    """The fixed PSF of ``--lp_kern``/``--lp_psf_sigma`` (a Gaussian when
+    both are set), or None: a learnable PSF, or none at ``lp_kern`` 0."""
+    return gaussian_psf_np(lp_kern, lp_psf_sigma) if lp_kern and lp_psf_sigma > 0 else None
+
+
+def build_model(arch="flagship", model_cfg=None, nafnet_width=32, gradient_mode="unroll",
+                lp_kern=0, lp_psf_sigma=0.0, *, device=None, generator=None):
     """The model ``--arch`` names, its weights drawn from ``generator``:
     the flagship (or the DivergentRestorer of the config's ``model``
-    override), or NAFNet [2, 2, 4, 8] / 12 / [2, 2, 2, 2] at ``nafnet_width``."""
-    if arch not in ("flagship", "nafnet"):
-        raise NotImplementedError(
-            f"--arch {arch}: not ported yet (ROADMAP.md, queue 1 item 6, the rest of the "
-            "model zoo)")
+    override), NAFNet [2, 2, 4, 8] / 12 / [2, 2, 2, 2] at ``nafnet_width``,
+    or the learned-prox ADMM through ``default_learned_prox`` (JAX
+    scripts/train.py:92-102)."""
     dev = resolve_device(device)
+    if arch == "learned_prox":
+        return default_learned_prox(kern=lp_kern, psf=learned_prox_psf(lp_kern, lp_psf_sigma),
+                                    device=dev, generator=generator)
     if arch == "nafnet":
         return NAFNet(img_channel=3, width=nafnet_width, middle_blk_num=12,
                       enc_blk_nums=(2, 2, 4, 8), dec_blk_nums=(2, 2, 2, 2), device=dev,
@@ -108,14 +120,15 @@ def run_training(model, train_loader, eval_loader, lr, epochs, saver, *, skip_no
 def init_training(config_file, min_std, max_std, save_dir, model_name, device=None,
                   resume_ckpt=None, skip_nonfinite=True, lr_override=None, arch="flagship",
                   nafnet_width=32, light_train_metrics=False, accum_steps=1,
-                  gradient_mode="unroll", blur_gaussian=0.0, blur_ksize=9):
+                  gradient_mode="unroll", lp_kern=0, lp_psf_sigma=0.0, blur_gaussian=0.0,
+                  blur_ksize=9):
     """Build the data, model and trainer from the config and train; returns
     the trainer."""
     dev = resolve_device(device)
     with open(os.path.join(os.getcwd(), config_file)) as f:
         train_cfg = json.load(f)
-    model = build_model(arch, train_cfg.get("model", {}), nafnet_width, gradient_mode,
-                        device=dev, generator=torch.Generator().manual_seed(0))
+    model = build_model(arch, train_cfg.get("model", {}), nafnet_width, gradient_mode, lp_kern,
+                        lp_psf_sigma, device=dev, generator=torch.Generator().manual_seed(0))
 
     transforms = [RandCrop(tuple(train_cfg["im_shape"])), Scale()]
     if blur_gaussian > 0:
@@ -164,8 +177,8 @@ def main(argv=None):
                         help="Override the config learning rate")
     parser.add_argument("--arch", choices=["flagship", "nafnet", "learned_prox"],
                         default="flagship",
-                        help="Model to train: the flagship DivergentRestorer or the NAFNet "
-                             "comparison model; learned_prox is not ported yet")
+                        help="Model to train: the flagship DivergentRestorer, the NAFNet "
+                             "comparison model or the learned-prox ADMM")
     parser.add_argument("--nafnet_width", type=int, default=32,
                         help="NAFNet width for --arch nafnet (the comparison checkpoint of "
                              "the eval harness is w64)")
@@ -178,6 +191,11 @@ def main(argv=None):
     parser.add_argument("--gradient_mode", choices=["unroll", "implicit"], default="unroll",
                         help="flagship ADMM layers: 'unroll' backprops through all solver "
                              "iterations; 'implicit' uses the fixed-point adjoint")
+    parser.add_argument("--lp_kern", type=int, default=0,
+                        help="learned_prox PSF size (0 = denoising, H = I)")
+    parser.add_argument("--lp_psf_sigma", type=float, default=0.0,
+                        help="learned_prox: fix the PSF to a Gaussian of this sigma "
+                             "(non-blind); 0 = learn it")
     parser.add_argument("--blur_gaussian", type=float, default=0.0,
                         help="Circularly blur train/eval inputs with a Gaussian PSF of this "
                              "sigma (deblur protocol); 0 = off")
@@ -189,6 +207,7 @@ def main(argv=None):
                   skip_nonfinite=args.skip_nonfinite, lr_override=args.lr, arch=args.arch,
                   nafnet_width=args.nafnet_width, light_train_metrics=args.light_train_metrics,
                   accum_steps=args.accum_steps, gradient_mode=args.gradient_mode,
+                  lp_kern=args.lp_kern, lp_psf_sigma=args.lp_psf_sigma,
                   blur_gaussian=args.blur_gaussian, blur_ksize=args.blur_ksize)
 
 
