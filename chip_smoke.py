@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``torch_admm_deconv_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, and drives four
+holds each against its plain PyTorch version on the card, and drives six
 main paths, each with the launch counts set to 0 just before and read just
 after: (1) the flagship DivergentRestorer forward at full width, classical
 tiled TV-ADMM serving and the solver loop with the fused step (phases 4-6);
@@ -17,7 +17,12 @@ and the serving script (phase 14); (5) the learned-prox ADMM trained at
 full width through the training script, denoising and non-blind
 deblurring, each held at init against the whole-solve kernel (phase 15),
 then its eval-harness column and the rest of the model zoo, each held
-against the CPU (phase 16). It checks
+against the CPU (phase 16); (6) the multi-device paths on
+``torch.distributed`` with NCCL, one rank a card, each rank a process of
+this script in worker mode (``--worker NAME``) under a timeout: the
+row-split 4096^2 deblur of ``scripts.megapixel_bench`` in both x-update
+modes and its residual-stopped form (phase 17), and data-parallel
+learned-prox training through ``scripts.train_dp`` (phase 18). It checks
 their outputs and prints one JSON line of kernel numbers and, last, one
 JSON status line. Exits non-zero, with no result line, when there is no GPU
 or a phase fails.
@@ -29,8 +34,10 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1243,10 +1250,353 @@ def zoo_on_the_card(dev, rng, ckpt):
     return {"learned_prox_column": column, "zoo": zoo, "expected_k2": expected_k2}
 
 
+# -- the multi-device paths (phases 17-18): torch.distributed ranks ---------
+# One rank per card (NCCL refuses two ranks on one GPU), each a fresh process
+# of this script in worker mode, started by torch.distributed.run in a
+# session of its own and killed with it when it outlasts RANKS_TIMEOUT_S; a
+# collective fails after the process group's timeout (120 s in the workers,
+# the megapixel script's default 600 s there).
+RANKS_TIMEOUT_S = 300
+# BASELINE config 5 as scripts/megapixel_bench.py sets it: 4096^2 RGB, a 9x9
+# Gaussian of sigma 1.5, AWGN 0.005, lambda 0.002, rho 0.5, 50 iterations,
+# halo 32; each mode held against the unsharded admm_tv at JAX's deblur bars
+# (tests/test_spatial.py:87,219)
+MP_SIZE = 4096
+MP_BARS = {"pencil": 5e-4, "halo": 1e-3}
+# the adaptive solve in the form of examples/megapixel_demo.py --adaptive: a
+# one-channel 4096^2 checkerboard (128-pixel squares, AWGN 0.05), lambda 0.05,
+# rho 1, tol 1e-4, pencil mode, at spatial_admm_tv_adaptive's maxit of 500
+MP_ADAPTIVE = dict(lmbd=0.05, rho=1.0, tol=1e-4, maxit=500)
+# BASELINE config 4 as scripts/train_dp.py sets it: default_learned_prox (10
+# stages, hidden 32), the deblur protocol (9x9 Gaussian of sigma 1.5, circular
+# blur, AWGN 5/255), global batch 8 of 256^2 crops, lr 8.8e-4,
+# SSIMLabColorLoss; cut to phase 11's synthetic images (numpy seed 11, 16
+# train and 8 eval, 3x320x320), 1 epoch, no corpus
+DP = dict(steps=10, blur_gaussian=1.5, blur_ksize=9, awgn=5, global_batch=8, crop=256,
+          lr=8.8e-4)
+
+
+def kernel_launches() -> dict:
+    """The K1-K4 launch counts of this process."""
+    from torch_admm_deconv_tpu_torch.kernels import fused_admm, vmem_solver
+
+    return {"fused_elementwise_step": fused_admm.LAUNCHES.n, "admm_tv_vmem": vmem_solver.LAUNCHES.n,
+            "admm_tv_vmem_interleaved": vmem_solver.INTERLEAVED_LAUNCHES.n,
+            "admm_tv_adaptive_vmem": vmem_solver.ADAPTIVE_LAUNCHES.n}
+
+
+def reset_kernel_launches() -> None:
+    from torch_admm_deconv_tpu_torch.kernels import fused_admm, vmem_solver
+
+    for counter in (fused_admm.LAUNCHES, vmem_solver.LAUNCHES, vmem_solver.INTERLEAVED_LAUNCHES,
+                    vmem_solver.ADAPTIVE_LAUNCHES):
+        counter.reset()
+
+
+def run_ranks(*worker_args: str) -> list:
+    """``chip_smoke.py --worker ...`` on ``torch.cuda.device_count()`` ranks
+    through ``torch.distributed.run``; fails unless every rank exits 0
+    within ``RANKS_TIMEOUT_S``. Returns the JSON objects the ranks printed,
+    and checks that each rank reported its kernel launches."""
+    n = torch.cuda.device_count()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", str(Path(__file__).resolve()), "--worker", *worker_args]
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=RANKS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise RuntimeError(f"ranks {worker_args} outlasted {RANKS_TIMEOUT_S} s:\n{err[-3000:]}")
+    require(proc.returncode == 0,
+            f"ranks {worker_args} failed (rc {proc.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+    objs = json_objects(out)
+    ranks = sorted(o["rank"] for o in objs if "launches" in o)
+    require(ranks == list(range(n)), f"ranks {worker_args}: launch counts from ranks {ranks}")
+    return objs
+
+
+def emit(obj) -> None:
+    """One JSON line in one write: the ranks share the launcher's stdout,
+    unbuffered, where print() writes the text and the newline apart."""
+    os.write(sys.stdout.fileno(), (json.dumps(obj) + "\n").encode())
+
+
+def json_objects(text: str) -> list:
+    """Every JSON object in ``text``, also where two ranks' lines ran
+    together."""
+    dec, objs, i = json.JSONDecoder(), [], text.find("{")
+    while i != -1:
+        try:
+            obj, i = dec.raw_decode(text, i)
+            objs.append(obj)
+        except json.JSONDecodeError:
+            i += 1
+        i = text.find("{", i)
+    return objs
+
+
+def summed_launches(objs) -> dict:
+    total = {}
+    for o in objs:
+        for name, c in o.get("launches", {}).items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+def megapixel_paths() -> dict:
+    """Phase 17: BASELINE config 5 through ``scripts/megapixel_bench.py`` in
+    both x-update modes, then the residual-stopped form, each on every card
+    (one rank a card)."""
+    result, launches = {}, []
+    for mode in ("halo", "pencil"):
+        t0 = time.perf_counter()
+        objs = run_ranks("megapixel", "--size", str(MP_SIZE), "--x_update_mode", mode)
+        wall = time.perf_counter() - t0
+        lines = {o["metric"]: o for o in objs if "metric" in o}
+        rate = next(v for k, v in lines.items() if k.startswith(f"megapixel_{MP_SIZE}x"))
+        oracle = lines["megapixel_max_err_vs_unsharded_oracle"]
+        device = lines["megapixel_device"]
+        launches.append(summed_launches(objs))
+        log(f"megapixel {MP_SIZE}^2 RGB {mode} on {device['ranks']} rank(s): "
+            f"{rate['value']:.3f} iterations/s (best of 3 solves of 50, {rate['solve_s']:.4f} s), "
+            f"PSNR {rate['psnr_blurred']:.3f} -> {rate['psnr_restored']:.3f} dB, max|sharded - "
+            f"unsharded admm_tv| {oracle['value']:.3e} (tol {MP_BARS[mode]}; unsharded solve "
+            f"{oracle['oracle_solve_s']:.4f} s, best of 3), peak memory rank 0 "
+            f"{device['peak_memory_bytes_rank0'] / 2**30:.3f} GiB, card {device['card']}; "
+            f"launcher wall {wall:.1f} s")
+        require(oracle["value"] <= MP_BARS[mode],
+                f"megapixel {mode}: {oracle['value']} from the unsharded solve")
+        require(rate["psnr_restored"] > rate["psnr_blurred"], f"megapixel {mode}: no PSNR gain")
+        result[mode] = {"rate": rate, "oracle": oracle, "device": device, "launcher_s": wall}
+    t0 = time.perf_counter()
+    objs = run_ranks("megapixel_adaptive")
+    wall = time.perf_counter() - t0
+    ad = next(o for o in objs if o.get("metric") == "megapixel_adaptive")
+    launches.append(summed_launches(objs))
+    log(f"megapixel adaptive {MP_SIZE}^2 checkerboard pencil on {ad['ranks']} rank(s): "
+        f"{ad['iters']} iterations (unsharded admm_tv_adaptive {ad['ref_iters']}), r "
+        f"{ad['r_norm']:.3e} s {ad['s_norm']:.3e} (tol {MP_ADAPTIVE['tol']}), rho {ad['rho']}, "
+        f"max|sharded - unsharded| {ad['max_err_vs_unsharded']:.3e}, PSNR {ad['psnr_noisy']:.3f} -> "
+        f"{ad['psnr_restored']:.3f} dB, solve (first, second call) {ad['solve_s']} s, unsharded "
+        f"{ad['unsharded_s']} s, peak memory rank 0 {ad['peak_memory_bytes_rank0'] / 2**30:.3f} "
+        f"GiB; launcher wall {wall:.1f} s")
+    require(ad["r_norm"] <= MP_ADAPTIVE["tol"] and ad["s_norm"] <= MP_ADAPTIVE["tol"],
+            "megapixel adaptive: a residual above tol")
+    require(abs(ad["iters"] - ad["ref_iters"]) <= 1,
+            f"megapixel adaptive: {ad['iters']} iterations, unsharded {ad['ref_iters']}")
+    result["adaptive"] = dict(ad, launcher_s=wall)
+    result["launches"] = launches
+    return result
+
+
+def dp_data():
+    """Phase 18's loaders and fixed global batch, the same in every process:
+    phase 11's synthetic images (numpy seed 11) through the deblur
+    protocol's transforms."""
+    from torch_admm_deconv_tpu_torch.data import DataLoader
+    from torch_admm_deconv_tpu_torch.scripts.train_dp import make_transforms
+
+    rng = np.random.default_rng(11)
+    images = [synthetic_image(rng, 3, 320, 320) * 255.0 for _ in range(24)]
+    transforms = make_transforms(DP["crop"], DP["blur_gaussian"], DP["blur_ksize"], DP["awgn"])
+    train = SyntheticPairs(images[:16], transforms)
+    train_loader = DataLoader(train, DP["global_batch"], seed=0)
+    eval_loader = DataLoader(SyntheticPairs(images[16:], transforms), 1, shuffle=False, seed=0,
+                             drop_last=False)
+    fixed = next(iter(DataLoader(train, DP["global_batch"], seed=0)))
+    return train_loader, eval_loader, fixed
+
+
+def dp_model(dev):
+    from torch_admm_deconv_tpu_torch.scripts.train_dp import build_model
+
+    return build_model(DP["steps"], DP["blur_gaussian"], DP["blur_ksize"], device=dev,
+                       generator=torch.Generator().manual_seed(0))
+
+
+def dp_training(dev) -> dict:
+    """Phase 18: BASELINE config 4 through ``scripts/train_dp.py``'s
+    functions on every card (one rank a card), then the 4-step loss
+    sequence of its DDP step on one fixed global batch held against the
+    port's single-process trainer step in this process, from the same
+    weights (TF32 off and deterministic cuDNN on both sides)."""
+    from torch_admm_deconv_tpu_torch.metrics import SSIMLabColorLoss
+    from torch_admm_deconv_tpu_torch.train import MetricsLogger, NNTrainer, make_optimizer
+
+    t0 = time.perf_counter()
+    objs = run_ranks("dp_train")
+    wall = time.perf_counter() - t0
+    got = next(o for o in objs if o.get("metric") == "dp_training")
+
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        _, _, fixed = dp_data()
+        loss = SSIMLabColorLoss()
+        logger = MetricsLogger(loss, [])
+        trainer = NNTrainer(loss, [], None, logger)
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.run(dp_model(dev), make_optimizer(DP["lr"]), 0, base_lr=DP["lr"])
+            single = []
+            for _ in range(4):
+                trainer.train([fixed], lambda step: DP["lr"])
+                single.append(logger.get_avg_metrics("train")[loss.m_name])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    rel_err = max(abs(a - b) / abs(b) for a, b in zip(got["fixed_losses"], single))
+    warm = got["step_s"][1:]
+    log(f"data-parallel learned prox on {got['ranks']} rank(s) ({got['backend']}), global batch "
+        f"{DP['global_batch']} at {DP['crop']}^2: {got['epoch_steps']} steps in 1 epoch, train loss "
+        f"{got['train_loss']:.6f}, eval loss {got['eval_loss']:.6f}, eval PSNR "
+        f"{got['eval_psnr']:.3f} dB; warm steps (median of {len(warm)}, min-max) "
+        f"{statistics.median(warm):.4f} s [{min(warm):.4f}, {max(warm):.4f}] (first "
+        f"{got['step_s'][0]:.4f} s); peak memory {got['peak_memory_bytes'] / 2**30:.3f} GiB (max "
+        f"over ranks); lambda/rho {got['lambda_rho']}; fixed-batch losses DDP "
+        f"{got['fixed_losses']} single-process {single}, max rel diff {rel_err:.3e} (tol 1e-6); "
+        f"launcher wall {wall:.1f} s")
+    losses = [got["train_loss"], got["eval_loss"], *got["fixed_losses"], *single]
+    require(all(math.isfinite(v) for v in losses), "data-parallel training: non-finite loss")
+    require(all(1e-12 <= v <= 5.0 for v in got["lambda_rho"].values()),
+            "data-parallel training: lambda or rho left [1e-12, 5]")
+    require(got["checkpoints"] > 0, "data-parallel training: rank 0 saved no checkpoint")
+    require(rel_err <= 1e-6, f"data-parallel step disagrees with the single-process step: {rel_err}")
+    return dict(got, single_process_fixed_losses=single, fixed_rel_err=rel_err, launcher_s=wall,
+                launches=summed_launches(objs))
+
+
+def worker(name: str, args) -> int:
+    """One rank of phase 17 or 18, started by ``run_ranks``: NCCL on this
+    rank's card. Prints its results (rank 0) and its kernel launches as
+    JSON lines."""
+    import torch.distributed as dist
+
+    from torch_admm_deconv_tpu_torch.parallel import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_kernel_launches()
+    if name == "megapixel":
+        from torch_admm_deconv_tpu_torch.scripts import megapixel_bench
+
+        megapixel_bench.main([*args, "--device", "cuda"])  # its own group, and its end
+        emit({"rank": int(os.environ["RANK"]), "launches": kernel_launches()})
+        return 0
+    rank, n = init_distributed(device="cuda", timeout_s=120)
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        {"megapixel_adaptive": _megapixel_adaptive_rank, "dp_train": _dp_train_rank}[name](
+            rank, n, dev)
+        emit({"rank": rank, "launches": kernel_launches()})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _megapixel_adaptive_rank(rank: int, n: int, dev) -> None:
+    from torch_admm_deconv_tpu_torch.ops.solver import admm_tv_adaptive
+    from torch_admm_deconv_tpu_torch.parallel import (
+        gather_rows,
+        make_mesh,
+        shard_rows,
+        spatial_admm_tv_adaptive,
+    )
+
+    mesh = make_mesh((n,), ("space",))
+    yy, xx = np.mgrid[0:MP_SIZE, 0:MP_SIZE]
+    img = 0.3 + 0.4 * ((yy // 128 + xx // 128) % 2)
+    noisy = np.clip(img + 0.05 * np.random.default_rng(0).normal(size=img.shape), 0, 1)
+    full = torch.from_numpy(noisy.astype(np.float32)[None, None])
+    x = shard_rows(full, mesh).to(dev)
+    kw = dict(MP_ADAPTIVE)
+    lmbd, rho = kw.pop("lmbd"), kw.pop("rho")
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed_twice(solve):
+        """The result and host times of a first call (cuFFT plans, NCCL's
+        first collective) and a second, each ending in a synchronize."""
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = solve()
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        return res, times
+
+    res, solve_s = timed_twice(lambda: spatial_admm_tv_adaptive(
+        x, lmbd, rho, None, mesh=mesh, x_update_mode="pencil", **kw))
+    out = gather_rows(res.x, mesh)
+    if rank == 0:
+        ref, unsharded_s = timed_twice(lambda: admm_tv_adaptive(full.to(dev), lmbd, rho, None,
+                                                                device=dev, **kw))
+        restored = out[0, 0].cpu().numpy()
+        emit({"metric": "megapixel_adaptive", "ranks": n, "iters": int(res.iters),
+              "ref_iters": int(ref.iters), "r_norm": float(res.r_norm),
+              "s_norm": float(res.s_norm), "rho": float(res.rho),
+              "max_err_vs_unsharded": max_diff(out, ref.x),
+              "psnr_noisy": psnr(noisy, img), "psnr_restored": psnr(restored, img),
+              "solve_s": solve_s, "unsharded_s": unsharded_s,
+              "peak_memory_bytes_rank0": torch.cuda.max_memory_allocated(dev)})
+
+
+def _dp_train_rank(rank: int, n: int, dev) -> None:
+    import torch.distributed as dist
+
+    from torch_admm_deconv_tpu_torch.metrics import SSIMLabColorLoss
+    from torch_admm_deconv_tpu_torch.parallel import (
+        make_dp_train_step,
+        make_mesh,
+        process_batch_bounds,
+        shard_host_batch,
+    )
+    from torch_admm_deconv_tpu_torch.scripts.train_dp import run_training
+    from torch_admm_deconv_tpu_torch.train import NNSaver, make_optimizer
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    mesh = make_mesh((n,), ("data",))
+    train_loader, eval_loader, fixed = dp_data()
+    model = dp_model(dev)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_") if rank == 0 else None
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            hist = run_training(model, train_loader, eval_loader, DP["lr"], 1,
+                                NNSaver(out_dir, "lp_dp") if rank == 0 else None,
+                                DP["global_batch"], mesh)
+        checkpoints = len(list(Path(out_dir).glob("lp_dp/*/*.tar"))) if rank == 0 else 0
+    finally:
+        if out_dir is not None:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    lam_rho = {k: float(p.detach()) for k, p in model.named_parameters() if k in ("lmbda", "rho")}
+    # the fixed-batch DDP steps from the same fresh weights as the reference
+    step = make_dp_train_step(dp_model(dev), make_optimizer(DP["lr"]), SSIMLabColorLoss(), mesh)
+    rows = process_batch_bounds(DP["global_batch"])
+    xs, ys = (shard_host_batch(a[rows], mesh) for a in fixed)
+    fixed_losses, step_s = [], list(hist["step_s"])
+    for _ in range(4):
+        t0 = time.perf_counter()
+        fixed_losses.append(step(xs, ys, DP["lr"]))  # ends in a host read of the loss
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.tensor(float(torch.cuda.max_memory_allocated(dev)), device=dev)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    if rank == 0:
+        emit({"metric": "dp_training", "ranks": n, "backend": dist.get_backend(),
+              "epoch_steps": hist["steps"][0], "train_loss": hist["train_loss"][0],
+              "eval_loss": hist["eval_loss"][0], "eval_psnr": float(hist["eval_psnr"][0]),
+              "step_s": step_s, "peak_memory_bytes": float(peak),
+              "lambda_rho": lam_rho, "fixed_losses": fixed_losses,
+              "checkpoints": checkpoints})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(sys.argv[2], sys.argv[3:])
 
     from torch_admm_deconv_tpu_torch.kernels import fused_admm, vmem_solver
     from torch_admm_deconv_tpu_torch.kernels._build import LIBRARIES, ptxas_kernels
@@ -1583,6 +1933,25 @@ def main() -> int:
     log(f"fifth main path (phases 15-16): launches {zoo_launches}")
     require(k2["launches_zoo_path"] == expected,
             f"{k2['name']}: {k2['launches_zoo_path']} launches on the zoo path, expected {expected}")
+    # -- the sixth main path: the multi-device paths, in torch.distributed
+    # ranks, each a fresh process whose counts start at 0 and are read at its end
+    torch.cuda.empty_cache()  # the ranks share this card
+    t_phase = time.perf_counter()
+    # phase 17: BASELINE config 5, the row-split megapixel solve
+    megapixel = megapixel_paths()
+    megapixel["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: {megapixel['phase_s']:.1f} s")
+    t_phase = time.perf_counter()
+    # phase 18: BASELINE config 4, data-parallel learned-prox training
+    dp = dp_training(dev)
+    dp["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {dp['phase_s']:.1f} s")
+    # neither JAX path reaches a Pallas kernel: a launch here would be a
+    # routing difference from the reference
+    multi_launches = summed_launches([{"launches": c}
+                                      for c in megapixel.pop("launches") + [dp.pop("launches")]])
+    log(f"sixth main path (phases 17-18): launches summed over the ranks {multi_launches}")
+    require(not any(multi_launches.values()), "a kernel launched on the multi-device paths")
     # device operations per K2, K3 and K4 solve, last: the timed phases run
     # before any profiler session
     (k2["device_ops_per_solve"], k3["device_ops_per_solve"],
@@ -1592,6 +1961,9 @@ def main() -> int:
     log(json.dumps({"flagship_training": flagship_train}))
     log(json.dumps({"eval_harness": harness, "nafnet": naf, "serving_script": serving}))
     log(json.dumps({"learned_prox": learned, "zoo": zoo}))
+    log(json.dumps({"megapixel": megapixel, "dp_training": dp}))
+    for entry in (k1, k2, k3, k4):
+        entry["launches_multidevice_path"] = multi_launches[entry["name"]]
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

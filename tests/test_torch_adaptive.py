@@ -252,10 +252,26 @@ def test_admm_tv_adaptive_fixed_rho_and_chw(rng):
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-5)
 
 
-def test_admm_tv_adaptive_psum_axis_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        t_solver.admm_tv_adaptive(torch.zeros(1, 1, 8, 8), 0.05, 0.8, psum_axis="space",
-                                  device="cpu")
+def test_admm_tv_adaptive_psum_axis_not_ported(rng, tmp_path):
+    """``psum_axis`` is ported: it takes a process group (or a mesh and an
+    axis), not JAX's bare axis name. Over a one-rank gloo group the sums
+    are this rank's, so the solve is the ungrouped one exactly; the
+    multi-rank semantics are held in tests/test_torch_data_parallel.py."""
+    import torch.distributed as dist
+
+    x = torch.from_numpy((rng.normal(size=(2, 1, 16, 16)) * 0.1 + 0.5).astype(np.float32))
+    with pytest.raises(ValueError, match="names a mesh axis"):
+        t_solver.admm_tv_adaptive(x, 0.05, 0.8, psum_axis="space", device="cpu")
+    want = t_solver.admm_tv_adaptive(x, 0.05, 0.8, maxit=100, tol=1e-4, device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        got = t_solver.admm_tv_adaptive(x, 0.05, 0.8, maxit=100, tol=1e-4,
+                                        psum_axis=dist.group.WORLD, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert int(got.iters) == int(want.iters)
+    assert torch.equal(got.x, want.x) and torch.equal(got.rho, want.rho)
 
 
 def test_adaptive_entry_points_default_to_cuda():

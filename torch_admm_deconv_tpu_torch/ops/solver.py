@@ -11,18 +11,28 @@ the loop. ``admm_tv`` keeps the JAX dispatch: with ``use_pallas`` and not
 and the mode is not 'compat'. ``admm_tv_adaptive`` is the classical solve
 with residual stopping and adaptive rho (one global stopping decision, the
 same ``torch.fft`` loop), and ``tv_objective`` the diagnostic objective.
+Both solvers take ``psum_axis``, a process group over which the batch is
+split between processes (``parallel/``): ``admm_tv`` sums its 'compat' norm
+over it and ``admm_tv_adaptive`` its residuals.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from torch_admm_deconv_tpu_torch._device import resolve_device
+from torch_admm_deconv_tpu_torch._dist import all_reduce_sum, resolve_group
 from torch_admm_deconv_tpu_torch.ops import fdops
-from torch_admm_deconv_tpu_torch.ops.prox import block_thresh, block_thresh_joint, soft_thresh
+from torch_admm_deconv_tpu_torch.ops.prox import (
+    _EPS,
+    block_thresh,
+    block_thresh_joint,
+    soft_thresh,
+)
 
 FFT_IMPLS = ("auto", "xla", "dht", "mxu")
 
@@ -36,18 +46,31 @@ class ADMMState(NamedTuple):
     u_y: torch.Tensor  # scaled dual for the y-gradient split
 
 
-def _shrink(dxu, dyu, tau, iso: bool, iso_mode: str):
-    """JAX solver.py:56-66."""
+def _shrink(dxu, dyu, tau, iso: bool, iso_mode: str, group=None):
+    """JAX solver.py:56-66. ``group``: the process group over which the
+    batch is split; the 'compat' norm then sums over the whole batch."""
     if not iso:
         return soft_thresh(dxu, tau), soft_thresh(dyu, tau)
     if iso_mode == "compat":
         # reference behaviour: independent x/y shrinkage, norm over (B, C)
+        if group is not None:
+            return _block_thresh_global(dxu, tau, group), _block_thresh_global(dyu, tau, group)
         return block_thresh(dxu, tau, axis=(0, 1)), block_thresh(dyu, tau, axis=(0, 1))
     if iso_mode == "sample":
         return block_thresh(dxu, tau, axis=(1,)), block_thresh(dyu, tau, axis=(1,))
     if iso_mode == "joint":
         return block_thresh_joint(dxu, dyu, tau)
     raise ValueError(f"unknown iso_mode: {iso_mode!r}")
+
+
+def _block_thresh_global(x: torch.Tensor, tau, group) -> torch.Tensor:
+    """``block_thresh(x, tau, axis=(0, 1))`` with the batch split over
+    ``group``: the squared norm is summed over the ranks before the root,
+    which is what XLA's psum gives a batch-sharded JAX call (JAX
+    parallel/data_parallel.py:43-48). One all-reduce per call."""
+    sq = all_reduce_sum(torch.sum(x * x, dim=(0, 1), keepdim=True), group)
+    norm = torch.sqrt(sq + _EPS)
+    return torch.clamp_min(1.0 - tau / (norm + _EPS), 0.0) * x
 
 
 def _x_update(s: torch.Tensor, freq_c: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
@@ -64,14 +87,14 @@ def _htran(xin, kern, im_shape, dtype):
     return fdops.htran_fft(xin, otf_c, im_shape)
 
 
-def _elementwise_step(x, u_x, u_y, hty, rho, tau, iso, iso_mode):
+def _elementwise_step(x, u_x, u_y, hty, rho, tau, iso, iso_mode, group=None):
     """Post-FFT half of iteration k fused with the pre-FFT half of k+1:
     shrinkage, dual update and ``s' = H^T y + rho (Dx^T(z_x - u_x') +
     Dy^T(z_y - u_y'))`` (JAX solver.py:125-140). Also the plain version of
     the K1 kernel (kernels/fused_admm.py)."""
     dxk = fdops.dx(x)
     dyk = fdops.dy(x)
-    z_x, z_y = _shrink(dxk + u_x, dyk + u_y, tau, iso, iso_mode)
+    z_x, z_y = _shrink(dxk + u_x, dyk + u_y, tau, iso, iso_mode, group)
     u_x = u_x + dxk - z_x
     u_y = u_y + dyk - z_y
     s = hty + rho * (fdops.dx_t(z_x - u_x) + fdops.dy_t(z_y - u_y))
@@ -96,6 +119,7 @@ def admm_tv(
     fft_impl: str = "auto",
     precision: str = "high",
     fast_frac: float = 0.75,
+    psum_axis=None,
     device=None,
 ) -> torch.Tensor:
     """Fixed-iteration TV-ADMM (JAX solver.py:152-231).
@@ -113,6 +137,11 @@ def admm_tv(
       fft_impl: accepted for API parity; every value runs ``torch.fft``.
       precision, fast_frac: 'high' | 'mixed' schedule of the whole-solve
         kernel; ignored on the loop path.
+      psum_axis: the process group over which the batch is split (a
+        ``ProcessGroup``, a ``(DeviceMesh, axis)`` pair or a 1-D mesh);
+        ``xin`` is then this rank's rows, and the iso 'compat' norm over
+        (B, C) sums over the whole batch, two all-reduces an iteration, on
+        the loop path. The other modes are per sample and need no sum.
       device: ``None`` means CUDA; the CPU only when named.
 
     Returns the restored batch, same shape as ``xin``.
@@ -122,6 +151,11 @@ def admm_tv(
     dev = resolve_device(device)
     xin = torch.as_tensor(xin, device=dev)
     kern = None if kern is None else torch.as_tensor(kern, device=dev)
+    group = resolve_group(psum_axis) if iso and iso_mode == "compat" else None
+    if group is not None:
+        # the global batch is not this rank's: no batch-1 'sample' solve
+        return _admm_tv_scan(xin, lmbd, rho, kern, iso=iso, maxit=maxit, iso_mode=iso_mode,
+                             remat=remat, group=group)
     eff_mode = whole_solve_mode(xin.shape, xin.dtype, kern, iso, iso_mode, use_pallas, remat)
     if eff_mode is not None:
         from torch_admm_deconv_tpu_torch.kernels.vmem_solver import admm_tv_vmem
@@ -164,9 +198,11 @@ def _admm_tv_scan(
     iso_mode: str = "compat",
     remat: bool = False,
     use_pallas: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """The loop implementation of :func:`admm_tv` (JAX solver.py:238-283);
-    differentiable unless ``use_pallas`` puts K1 in the loop."""
+    differentiable unless ``use_pallas`` puts K1 in the loop. ``group``:
+    the process group of a 'compat' norm over a split batch."""
     squeeze = 4 - xin.ndim
     xin = xin.reshape((1,) * squeeze + tuple(xin.shape))
     im_shape = tuple(xin.shape[-2:])
@@ -185,6 +221,9 @@ def _admm_tv_scan(
         from torch_admm_deconv_tpu_torch.kernels.fused_admm import fused_elementwise_step
 
         elementwise = fused_elementwise_step
+
+    if group is not None:
+        elementwise = partial(_elementwise_step, group=group)
 
     def step(s, u_x, u_y):
         x = _x_update(s, freq_c, im_shape)
@@ -235,7 +274,7 @@ def admm_tv_adaptive(
     rho_mu: float = 10.0,
     rho_scale: float = 2.0,
     check_every: int = 1,
-    psum_axis: Optional[str] = None,
+    psum_axis=None,
     fft_impl: str = "auto",
     device=None,
 ) -> AdaptiveResult:
@@ -248,12 +287,14 @@ def admm_tv_adaptive(
     |H|^2 and |D|^2. The stopping test reads both residuals on the host
     every iteration. ``check_every`` and ``fft_impl`` are accepted for
     parity (the JAX function ignores the first; every value of the second
-    runs ``torch.fft``). ``psum_axis`` belongs to the multi-device port and
-    raises until then. Not differentiable in JAX (a while loop); use
+    runs ``torch.fft``). ``psum_axis``: the process group over which the
+    batch is split (a ``ProcessGroup``, a ``(DeviceMesh, axis)`` pair or a
+    1-D mesh); the element count and both residual sums are then summed
+    over it (JAX solver.py:360-367), so every rank reads the same residuals
+    and takes the same stop and the same rho. As in JAX, the shrinkage
+    stays per rank. Not differentiable in JAX (a while loop); use
     :func:`admm_tv` or ``ops.implicit.admm_tv_implicit`` for training.
     ``device``: ``None`` means CUDA; the CPU only when named."""
-    if psum_axis is not None:
-        raise NotImplementedError("admm_tv_adaptive(psum_axis=...) needs the multi-device port")
     if fft_impl not in FFT_IMPLS:
         raise ValueError(f"unknown fft_impl: {fft_impl!r}")
     dev = resolve_device(device)
@@ -263,7 +304,7 @@ def admm_tv_adaptive(
     xin = xin.reshape((1,) * squeeze + tuple(xin.shape))
     k, (x, *_), r, s, rho_f = _adaptive_loop(
         xin, _as_scalar(lmbd, xin), _as_scalar(rho, xin), kern, iso, maxit, tol, iso_mode,
-        adapt_rho, rho_mu, rho_scale,
+        adapt_rho, rho_mu, rho_scale, group=resolve_group(psum_axis),
     )
     return AdaptiveResult(
         x=x.reshape(x.shape[squeeze:]), iters=torch.tensor(k, dtype=torch.int32, device=dev),
@@ -272,11 +313,12 @@ def admm_tv_adaptive(
 
 
 def _adaptive_loop(xin, lmbd, rho, kern, iso, maxit, tol, iso_mode, adapt_rho, rho_mu,
-                   rho_scale):
+                   rho_scale, group=None):
     """The residual-stopped loop of :func:`admm_tv_adaptive` on (B, C, H, W)
     with scalar tensors lmbd and rho; also the fixed-rho solve of
-    ``ops.implicit`` (``adapt_rho=False``). Returns (iterations, (x, z_x,
-    z_y, u_x, u_y), r, s, rho)."""
+    ``ops.implicit`` (``adapt_rho=False``). ``group``: the process group
+    whose ranks hold the rest of the batch; the sums of the stopping test
+    run over it. Returns (iterations, (x, z_x, z_y, u_x, u_y), r, s, rho)."""
     im_shape = tuple(xin.shape[-2:])
     dtype, dev = xin.dtype, xin.device
     d2 = fdops.grad_otf_abs2(im_shape, dtype, dev)
@@ -286,7 +328,14 @@ def _adaptive_loop(xin, lmbd, rho, kern, iso, maxit, tol, iso_mode, adapt_rho, r
         otf = fdops.psf_otf(kern.to(dtype), im_shape)
         h_abs2 = (otf.real**2 + otf.imag**2).reshape(im_shape[0], im_shape[1] // 2 + 1)
     hty = _htran(xin, kern, im_shape, dtype)
-    scale = torch.sqrt(torch.tensor(2.0 * xin.numel(), dtype=dtype, device=dev))
+
+    def reduce_all(v):
+        return all_reduce_sum(torch.sum(v), group)
+
+    numel = float(xin.numel())
+    if group is not None:  # the whole batch's element count, summed exactly in float64
+        numel = float(all_reduce_sum(torch.tensor(numel, dtype=torch.float64, device=dev), group))
+    scale = torch.sqrt(torch.tensor(2.0 * numel, dtype=dtype, device=dev))
 
     zeros = torch.zeros_like(xin)
     x, z_x, z_y, u_x, u_y = zeros, zeros, zeros, zeros, zeros
@@ -301,7 +350,7 @@ def _adaptive_loop(xin, lmbd, rho, kern, iso, maxit, tol, iso_mode, adapt_rho, r
         z_x_new, z_y_new = _shrink(dxk + u_x, dyk + u_y, lmbd / rho, iso, iso_mode)
         u_x = u_x + dxk - z_x_new
         u_y = u_y + dyk - z_y_new
-        r, s = _residual_norms(x, z_x_new, z_y_new, z_x, z_y, rho, torch.sum)
+        r, s = _residual_norms(x, z_x_new, z_y_new, z_x, z_y, rho, reduce_all)
         r, s = r / scale, s / scale
         z_x, z_y = z_x_new, z_y_new
         if adapt_rho:
