@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``torch_admm_deconv_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, and drives six
+holds each against its plain PyTorch version on the card, and drives seven
 main paths, each with the launch counts set to 0 just before and read just
 after: (1) the flagship DivergentRestorer forward at full width, classical
 tiled TV-ADMM serving and the solver loop with the fused step (phases 4-6);
@@ -22,15 +22,22 @@ against the CPU (phase 16); (6) the multi-device paths on
 this script in worker mode (``--worker NAME``) under a timeout: the
 row-split 4096^2 deblur of ``scripts.megapixel_bench`` in both x-update
 modes and its residual-stopped form (phase 17), and data-parallel
-learned-prox training through ``scripts.train_dp`` (phase 18). It checks
-their outputs and prints one JSON line of kernel numbers and, last, one
-JSON status line. Exits non-zero, with no result line, when there is no GPU
+learned-prox training through ``scripts.train_dp`` (phase 18); (7) the
+classical scripts and the examples: BASELINE config 3's rho/lambda grid
+sweep through ``scripts.grid_sweep`` (phase 19), the single-image anchor
+with phase 11's checkpoint (phase 20), the mixed-precision study of
+``scripts.bench_mixed_precision`` (phase 21), the native C++ loader feeding
+the learned prox's training where libpng and libjpeg let it build (phase
+22), and the two examples, the megapixel one on the ranks (phase 23). It
+checks their outputs and prints one JSON line of kernel numbers and, last,
+one JSON status line. Exits non-zero, with no result line, when there is no GPU
 or a phase fails.
 """
 
 from __future__ import annotations
 
 import contextlib
+import csv
 import io
 import json
 import math
@@ -39,10 +46,12 @@ import re
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -58,6 +67,10 @@ CHAIN_FLOPS_PER_PIXEL = 25  # differences, shrinkage, dual update, adjoint sum
 # K3's chain adds the residuals and their sums, the dual rescale and the
 # rebuilt spectrum of the epilogue
 ADAPTIVE_CHAIN_FLOPS_PER_PIXEL = 50
+
+
+# temporary directories that outlive a phase, removed at exit
+TEMP_DIRS: list = []
 
 
 def log(*parts) -> None:
@@ -219,10 +232,16 @@ def launches_per_solve(solves: dict) -> dict:
     """Device operations of one call of each solve under one torch.profiler
     session (a second session in this script recorded no device events):
     ``solves`` maps a name to its calls at two or more iteration counts,
-    each warmed up first. A call's operations are the device events that
-    start inside its labelled range, which ends in a synchronize. Fails
-    unless a solve is one persistent launch, the same number of operations
-    at every depth, with no host wait or copy to the host inside."""
+    each warmed up first. A call's operations are the device events (not
+    the card's copies of the labels) whose launching runtime call
+    (``cudaLaunchKernel``, ``cudaMemsetAsync``, ..., the same CUPTI
+    correlation id) starts inside its labelled range, which ends in a
+    synchronize. Both ends are on the host's clock: a device
+    event's own start is converted from the card's clock, and near a range's
+    edge that conversion has put an operation into the neighbouring call.
+    An event whose runtime call was not recorded falls back to its own start.
+    Fails unless a solve is one persistent launch, the same number of
+    operations at every depth, with no host wait or copy to the host inside."""
     calls = [(f"{name} @ {depth}", fn) for name, by_depth in solves.items()
              for depth, fn in by_depth.items()]
     for _, fn in calls:
@@ -236,16 +255,26 @@ def launches_per_solve(solves: dict) -> dict:
                 torch.cuda.synchronize()
     events = prof.events()
     cpu, card = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    runtime = {e.id: e for e in events if e.device_type == cpu and e.name.startswith("cu")}
+    # the card's copy of each labelled range is an annotation, not an operation
+    labels = {label for label, _ in calls}
+    device_ops = [e for e in events if e.device_type == card and e.name not in labels
+                  and not getattr(e, "is_user_annotation", False)]
+    # an event whose runtime call was not recorded keeps its own start
+    launched = {id(e): runtime.get(e.id, e).time_range for e in device_ops}
+    log(f"device events timed by their launching runtime call: "
+        f"{sum(e.id in runtime for e in device_ops)} of {len(device_ops)}; by their own start: "
+        f"{sorted({e.name[:40] for e in device_ops if e.id not in runtime})}")
     per_call = {}
     for label, _ in calls:
         rng = next(e.time_range for e in events if e.name == label)
-        inside = lambda e: rng.start <= e.time_range.start <= rng.end  # noqa: E731, B023
-        on_card = [e for e in events if e.device_type == card and inside(e)]
-        waits = sum(e.device_type == cpu and inside(e)
+        inside = lambda t: rng.start <= t.start <= rng.end  # noqa: E731, B023
+        on_card = [e for e in device_ops if inside(launched[id(e)])]
+        waits = sum(e.device_type == cpu and inside(e.time_range)
                     and e.name in ("cudaEventSynchronize", "cudaStreamSynchronize")
                     for e in events)
         per_call[label] = (len(on_card), sum("persistent" in e.name for e in on_card), waits,
-                           sum("DtoH" in e.name for e in on_card))
+                           sum("DtoH" in e.name for e in on_card), [e.name[:40] for e in on_card])
     out = {}
     for name, by_depth in solves.items():
         counts = [per_call[f"{name} @ {depth}"] for depth in by_depth]
@@ -253,7 +282,8 @@ def launches_per_solve(solves: dict) -> dict:
             f"{list(by_depth)} (persistent launches {[c[1] for c in counts]}, host waits "
             f"{[c[2] for c in counts]}, copies to the host {[c[3] for c in counts]}; "
             f"torch.profiler)")
-        require(len({c[0] for c in counts}) == 1, f"{name}: device operations grow with maxit")
+        require(len({c[0] for c in counts}) == 1,
+                f"{name}: device operations grow with maxit: {[c[4] for c in counts]}")
         require(all(c[1] == 1 for c in counts), f"{name}: not one persistent launch per solve")
         require(all(c[2] == 0 and c[3] == 0 for c in counts),
                 f"{name}: the host waits inside a solve")
@@ -1467,7 +1497,7 @@ def dp_training(dev) -> dict:
 
 
 def worker(name: str, args) -> int:
-    """One rank of phase 17 or 18, started by ``run_ranks``: NCCL on this
+    """One rank of phase 17, 18 or 23, started by ``run_ranks``: NCCL on this
     rank's card. Prints its results (rank 0) and its kernel launches as
     JSON lines."""
     import torch.distributed as dist
@@ -1482,6 +1512,15 @@ def worker(name: str, args) -> int:
 
         megapixel_bench.main([*args, "--device", "cuda"])  # its own group, and its end
         emit({"rank": int(os.environ["RANK"]), "launches": kernel_launches()})
+        return 0
+    if name == "megapixel_demo":
+        from torch_admm_deconv_tpu_torch.examples import megapixel_demo
+
+        demo = megapixel_demo.main([*args, "--device", "cuda"])  # its own group, and its end
+        rank = int(os.environ["RANK"])
+        if rank == 0:
+            emit({"metric": "megapixel_demo", **demo})
+        emit({"rank": rank, "launches": kernel_launches()})
         return 0
     rank, n = init_distributed(device="cuda", timeout_s=120)
     try:
@@ -1589,6 +1628,374 @@ def _dp_train_rank(rank: int, n: int, dev) -> None:
               "step_s": step_s, "peak_memory_bytes": float(peak),
               "lambda_rho": lam_rho, "fixed_losses": fixed_losses,
               "checkpoints": checkpoints})
+
+
+# -- the classical scripts, the native loader and the examples (phases 19-23)
+# BASELINE config 3 as scripts/grid_sweep.py sets it: the default 7x7 grid,
+# 100 iterations, 256^2 crops of the eval set as one batch; denoising at AWGN
+# 15 and deblurring (9x9 Gaussian of sigma 1.5) at AWGN 5. Cut: the eval
+# set's count (28 images, RESULTS.md "Eval protocol") of synthetic 3x320x320
+# images (numpy seed 12, as phase 12 makes them); the corpus is not in the repo
+GRID_IMAGES = 28
+GRID_AWGN = {"denoise": 15.0, "deblur": 5.0}
+# the single-image anchor's protocol: the centre 256^2 crop, AWGN 15 from
+# numpy seed 0, the admm column at the script's lambda 0.2 and rho 0.5
+ANCHOR_AWGN, ANCHOR_LMBD, ANCHOR_RHO = 15.0, 0.2, 0.5
+# the native loader: 16 synthetic 3x320^2 PNG pairs (x = y), one epoch at
+# batch 3, 256^2 crops, AWGN sigma in [0, 15)/255, 4 worker threads
+LOADER_IMAGES, LOADER_BATCH, LOADER_AWGN, LOADER_THREADS = 16, 3, (0, 15), 4
+# examples/megapixel_demo.py at its defaults: a 2048^2 checkerboard, 50 iterations
+DEMO_SIZE = 2048
+
+
+def grid_sweep_phase(dev, rng) -> dict:
+    """Phase 19: BASELINE config 3 through ``scripts.grid_sweep``'s
+    ``degrade`` and ``sweep`` in both modes, the sweep timed as the script
+    runs it. Then, outside the timer, every grid point again by a standalone
+    ``admm_tv`` call: each row's PSNR (read back from the CSV the script
+    writes) is held against 10 log10(1 / mean MSE) of that call's clipped
+    output, and each row's metrics against that output's."""
+    from torch_admm_deconv_tpu_torch.data import DataLoader, RandCrop, Scale
+    from torch_admm_deconv_tpu_torch.metrics import functional as F
+    from torch_admm_deconv_tpu_torch.ops.solver import admm_tv
+    from torch_admm_deconv_tpu_torch.scripts import grid_sweep
+
+    parser = grid_sweep.build_parser()
+    lmbds = [float(v) for v in parser.get_default("lmbd_grid").split(",")]
+    rhos = [float(v) for v in parser.get_default("rho_grid").split(",")]
+    crop, maxit = parser.get_default("crop"), parser.get_default("maxit")
+    images = [synthetic_image(rng, 3, 320, 320) * 255.0 for _ in range(GRID_IMAGES)]
+    loader = DataLoader(SyntheticPairs(images, [RandCrop(crop), Scale()]), 1, shuffle=False,
+                        seed=parser.get_default("seed"), drop_last=False)
+    clean = np.concatenate([y for _, y in loader], axis=0)
+    yt = torch.from_numpy(clean).to(dev)
+    result = {}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+    try:
+        for mode, awgn in GRID_AWGN.items():
+            noisy, kern = grid_sweep.degrade(clean, mode, awgn, crop, parser.get_default("seed"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = grid_sweep.sweep(clean, noisy, kern, lmbds, rhos, maxit, dev)
+            wall = time.perf_counter() - t0
+            csv_path = Path(out_dir) / f"grid_{mode}_awgn{int(awgn)}.csv"
+            grid_sweep.write_csv(rows, csv_path)
+            with open(csv_path) as f:
+                csv_rows = list(csv.DictReader(f))
+            lines = grid_sweep.summary_lines(rows, clean, noisy, mode, awgn,
+                                             (len(lmbds), len(rhos)), wall, csv_path)
+            for line in lines:
+                log(line)
+            require(len(rows) == len(csv_rows) == len(lmbds) * len(rhos),
+                    f"grid {mode}: rows missing")
+            # every point again, alone: nothing may leak between points
+            xt = torch.from_numpy(noisy).to(dev)
+            kt = None if kern is None else torch.from_numpy(kern).to(dev)
+            psnr_err = alone_err = 0.0
+            for row, csv_row in zip(rows, csv_rows):
+                with torch.inference_mode():
+                    out = torch.clamp(admm_tv(xt, row["lmbd"], row["rho"], kt, iso=True,
+                                              maxit=maxit, device=dev), 0.0, 1.0)
+                    mse = float(((out.double() - yt.double()) ** 2).mean(dim=(1, 2, 3)).mean())
+                    alone = {"ssim": float(F.ssim(out, yt)), "uiq": float(F.uiq(out, yt)),
+                             "scc": float(F.scc(out, yt)), "psnr_from_mean_mse": 10.0 * math.log10(
+                                 1.0 / float(torch.mean((out - yt) ** 2, dim=(1, 2, 3)).mean()))}
+                psnr_err = max(psnr_err, abs(float(csv_row["psnr_from_mean_mse"])
+                                             - 10.0 * math.log10(1.0 / mse)))
+                alone_err = max(alone_err, max(abs(alone[k] - row[k]) for k in alone))
+            best = max(rows, key=lambda r: r["psnr_from_mean_mse"])
+            noisy_psnr = psnr(noisy, clean)
+            log(f"grid sweep {mode} ({GRID_IMAGES} images of 3x{crop}^2, {len(rows)} points x "
+                f"{maxit} iterations): wall {wall:.3f} s, {wall / len(rows) * 1e3:.2f} ms a point; "
+                f"degraded {noisy_psnr:.3f} dB, best lmbd {best['lmbd']} rho {best['rho']} "
+                f"{best['psnr_from_mean_mse']:.3f} dB (SSIM {best['ssim']:.4f}); max|CSV PSNR - "
+                f"PSNR of the mean MSE of a standalone solve| {psnr_err:.3e} dB (tol 1e-4); "
+                f"every point alone max|diff| {alone_err:.3e} (tol 1e-6)")
+            require(all(math.isfinite(float(v)) for r in csv_rows for v in r.values()),
+                    f"grid {mode}: a non-finite row")
+            require(best["psnr_from_mean_mse"] > noisy_psnr, f"grid {mode}: no PSNR gain")
+            require(psnr_err <= 1e-4, f"grid {mode}: CSV PSNR is not that of the mean MSE")
+            require(alone_err <= 1e-6, f"grid {mode}: a point alone differs: {alone_err}")
+            result[mode] = {"wall_s": wall, "ms_per_point": wall / len(rows) * 1e3,
+                            "noisy_psnr": noisy_psnr, "best": best, "rows": rows,
+                            "csv_psnr_err": psnr_err, "alone_err": alone_err}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return result
+
+
+def anchor_phase(dev, rng, ckpt) -> dict:
+    """Phase 20: ``scripts.single_image_anchor``'s ``anchor`` on the centre
+    256^2 crop of one synthetic 320^2 image with phase 11's best checkpoint
+    (K2 twice); its ADMM layers against a loop copy of the model."""
+    from torch_admm_deconv_tpu_torch.models.denoiser import flagship_divergent_restorer
+    from torch_admm_deconv_tpu_torch.scripts import single_image_anchor as sia
+
+    clean = sia.center_crop(synthetic_image(rng, 3, 320, 320).transpose(1, 2, 0))
+    noisy = sia.add_noise(clean, ANCHOR_AWGN, 0)
+    model = sia.load_model(ckpt, None, dev)
+    loop_model = flagship_divergent_restorer(remat=False, use_pallas=False, device=dev)
+    loop_model.load_state_dict(model.state_dict())
+    loop_model.eval()
+    layers = {}
+    for tag, net in (("kernel", model), ("loop", loop_model)):
+        for i in range(2):
+            getattr(net.block_0, f"admm_{i}").register_forward_hook(
+                lambda mod, inp, out, key=(tag, i): layers.__setitem__(key, out))
+    before = kernel_launches()["admm_tv_vmem"]
+    t0 = time.perf_counter()
+    outs, rows = sia.anchor(clean, noisy, model, ANCHOR_LMBD, ANCHOR_RHO, dev)
+    anchor_s = time.perf_counter() - t0
+    k2 = kernel_launches()["admm_tv_vmem"] - before
+    with torch.inference_mode():
+        loop_model(torch.from_numpy(noisy).to(dev))
+    layer_err = max(max_diff(layers[("kernel", i)], layers[("loop", i)]) for i in range(2))
+    by = {r["method"]: r for r in rows}
+    log(f"single-image anchor (1, 3, 256, 256), AWGN {ANCHOR_AWGN}: "
+        + ", ".join(f"{r['method']} PSNR {r['psnr']:.3f} dB SSIM {r['ssim']:.4f}" for r in rows)
+        + f"; {anchor_s:.3f} s; K2 launches {k2} (expected 2); model ADMM layers max|kernel - "
+        f"loop| {layer_err:.3e} (tol 1e-4)")
+    require(all(np.isfinite(outs[c]).all() and outs[c].shape == clean.shape
+                for c in ("model", "admm")), "anchor: a column is malformed")
+    require(by["admm"]["psnr"] > by["noisy"]["psnr"], "anchor: admm gains no PSNR")
+    require(layer_err <= 1e-4, f"anchor: the model's ADMM layers disagree with the loop: "
+                               f"{layer_err}")
+    require(k2 == 2, f"anchor: K2 launched {k2} times, expected 2")
+    return {"rows": rows, "seconds": anchor_s, "k2_launches": k2, "layer_err_vs_loop": layer_err}
+
+
+def mixed_precision_phase(dev) -> dict:
+    """Phase 21: ``scripts.bench_mixed_precision`` at its configuration, K2
+    and K3 at (8, 3, 512, 512), through its functions; the study's own K2
+    'high' and 'mixed' solves held against K2's plain version on its input,
+    at phase 3's bars."""
+    from torch_admm_deconv_tpu_torch.kernels import vmem_solver
+    from torch_admm_deconv_tpu_torch.scripts import bench_mixed_precision as bmp
+
+    x = bmp.make_input(device=dev)
+    study = bmp.study(x)
+    for line in bmp.report_lines(study):
+        log(f"mixed-precision study: {line}")
+    outputs = study.pop("outputs")
+    hty, freq, rho, tau, mats = vmem_solver.solve_inputs(x, bmp.LMBD, bmp.RHO, None)
+    study["k2_vs_plain"] = {}
+    for prec, tol in (("high", 2e-4), ("mixed", 2e-3)):
+        fast = vmem_solver.fast_iterations(prec, 0.75, bmp.MAXIT)
+        with torch.inference_mode():
+            want = vmem_solver.admm_tv_vmem_plain(hty, freq, mats, rho, tau, None, bmp.MAXIT, fast)
+        err = max_diff(outputs[prec], want)
+        study["k2_vs_plain"][prec] = err
+        log(f"mixed-precision study: K2 {prec} {tuple(x.shape)} aniso x{bmp.MAXIT} "
+            f"(fast iterations {fast}) against its plain version: max|diff| {err:.3e} (tol {tol})")
+        require(torch.isfinite(outputs[prec]).all() and err <= tol,
+                f"mixed-precision study: K2 {prec} disagrees with its plain version: {err}")
+    diff = study["mixed_vs_high"]
+    # the bar chip_smoke holds 'mixed' kernels to against their plain versions
+    require(math.isfinite(diff) and diff <= 2e-3,
+            f"mixed-precision study: mixed against high {diff} at 200 iterations")
+    for prec, a in study["adaptive"].items():
+        for tol in bmp.TOLS:
+            require(a["r_max"][tol] <= tol and a["s_max"][tol] <= tol,
+                    f"mixed-precision study: K3 {prec} left a residual above {tol}")
+        require(a["iters"][1e-5] > a["iters"][1e-3],
+                f"mixed-precision study: K3 {prec} took no more iterations to 1e-5 than to 1e-3")
+    return study
+
+
+def write_png(path: Path, hwc: np.ndarray) -> None:
+    """An 8-bit RGB PNG of ``hwc`` (uint8), by zlib and struct."""
+    h, w, _ = hwc.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + hwc[r].tobytes() for r in range(h))
+    header = chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))  # 8-bit RGB
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + header + chunk(b"IDAT", zlib.compress(raw))
+                     + chunk(b"IEND", b""))
+
+
+def native_loader_missing() -> list:
+    """What the native loader's build needs and this machine lacks: the
+    libpng and libjpeg headers and libraries."""
+    missing = [h for h in ("/usr/include/png.h", "/usr/include/jpeglib.h") if not Path(h).exists()]
+    libs = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    missing += [lib for lib in ("libpng", "libjpeg") if lib not in libs]
+    return missing
+
+
+def native_loader_phase(dev, rng) -> dict:
+    """Phase 22: the native loader built with g++, one epoch of 16 PNG pairs
+    (x = y) at batch 3, 256^2 crops, AWGN on x, 4 threads; each y an exact
+    window of its source, x = y without noise; then one epoch of the
+    learned prox's ``run_training`` fed by it."""
+    from torch_admm_deconv_tpu_torch.runtime import native
+    from torch_admm_deconv_tpu_torch.scripts.train import build_model, run_training
+    from torch_admm_deconv_tpu_torch.train import NNSaver
+
+    t0 = time.perf_counter()
+    native.ensure_built()
+    build_s = time.perf_counter() - t0
+    data_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_loader_"))
+    try:
+        sources = [np.round(synthetic_image(rng, 3, 320, 320) * 255.0 + rng.integers(
+            -20, 21, (3, 320, 320))).clip(0, 255).astype(np.uint8) for _ in range(LOADER_IMAGES)]
+        for side in ("x", "y"):
+            (data_dir / side).mkdir()
+            for i, src in enumerate(sources):
+                write_png(data_dir / side / f"{i:02d}.png", src.transpose(1, 2, 0))
+        crop = (256, 256)
+
+        def epoch(awgn):
+            loader = native.NativeDataLoader.from_dirs(
+                data_dir / "x", data_dir / "y", LOADER_BATCH, crop, awgn_std_range=awgn, seed=0,
+                n_threads=LOADER_THREADS)
+            try:
+                t0 = time.perf_counter()
+                batches = list(loader)
+                return batches, len(batches) / (time.perf_counter() - t0)
+            finally:
+                loader.close()
+
+        windows = np.stack([np.lib.stride_tricks.sliding_window_view(s[0], (4, 4))
+                            for s in sources])
+        for awgn in ((0, 0), LOADER_AWGN):
+            batches, rate = epoch(awgn)
+            require(len(batches) == LOADER_IMAGES // LOADER_BATCH, "loader: batches missing")
+            spread = []
+            for x, y in batches:
+                require(x.shape == y.shape == (LOADER_BATCH, 3, *crop) and x.dtype == np.float32
+                        and y.dtype == np.float32, "loader: batch malformed")
+                require(0.0 <= x.min() and x.max() <= 1.0 and 0.0 <= y.min() and y.max() <= 1.0,
+                        "loader: values outside [0, 1]")
+                for yi in y:
+                    # the one source window whose top-left 4x4 matches, then all of it
+                    key = np.round(yi[0, :4, :4] * 255.0).astype(np.uint8)
+                    hits = np.argwhere((windows == key).all(axis=(-2, -1)))
+                    windows_y = (sources[i][:, t:t + crop[0], l:l + crop[1]].astype(np.float32)
+                                 / np.float32(255.0) for i, t, l in hits)
+                    require(any(np.array_equal(w, yi) for w in windows_y),
+                            "loader: y is no window of a source image")
+                if awgn == (0, 0):
+                    require(np.array_equal(x, y), "loader: x differs from y without noise")
+                spread += [float(np.std(xi - yi)) for xi, yi in zip(x, y)]
+            top = (awgn[1] - 1) / 255.0 if awgn[1] else 0.0
+            log(f"native loader awgn {awgn}: {len(batches)} batches of "
+                f"{LOADER_BATCH}x3x{crop[0]}^2 "
+                f"on {LOADER_THREADS} threads, {rate:.2f} batches/s; std(x - y) per sample "
+                f"{min(spread):.4f}-{max(spread):.4f} (at most sigma {top:.4f})")
+            require(max(spread) <= 1.05 * top + 1e-7, "loader: x - y spread beyond the AWGN range")
+            if awgn != (0, 0):
+                require(max(spread) > 0.0, "loader: no noise on x")
+        # one epoch of the learned prox's training, fed by the native loader
+        train = native.NativeDataLoader.from_dirs(data_dir / "x", data_dir / "y", LOADER_BATCH,
+                                                  crop, awgn_std_range=LOADER_AWGN, seed=0,
+                                                  n_threads=LOADER_THREADS)
+        evals = native.NativeDataLoader.from_dirs(data_dir / "x", data_dir / "y", LOADER_BATCH,
+                                                  crop, awgn_std_range=LOADER_AWGN, seed=1,
+                                                  n_threads=LOADER_THREADS, shuffle=False)
+        try:
+            model = build_model("learned_prox", device=dev,
+                                generator=torch.Generator().manual_seed(0))
+            with contextlib.redirect_stdout(io.StringIO()):
+                trainer = run_training(model, train, evals, LP_LR, 1,
+                                       NNSaver(str(data_dir / "ckpt"), "lp_native"))
+        finally:
+            train.close()
+            evals.close()
+        logged = {k: list(v) for k, v in trainer.logger.get_logged().items() if v}
+        log(f"learned prox fed by the native loader: 1 epoch, losses train "
+            f"{logged['train_color_lab_loss']} eval {logged['eval_color_lab_loss']}")
+        require(all(math.isfinite(v) for vals in logged.values() for v in vals),
+                "loader-fed training: non-finite")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return {"build_s": build_s, "batches_per_s": rate, "logged": logged}
+
+
+def examples_phase(dev) -> dict:
+    """Phase 23: ``examples.solver_demo``'s ``run`` at its defaults, then
+    ``examples/megapixel_demo.py`` at its defaults (2048^2, fixed) on every
+    card, one rank a card."""
+    from torch_admm_deconv_tpu_torch.examples import solver_demo
+
+    clean = solver_demo.synthetic_image()
+    t0 = time.perf_counter()
+    demo = solver_demo.run(clean, device=dev)
+    demo_s = time.perf_counter() - t0
+    readings = {k: float(v) for k, v in demo.items() if not isinstance(v, np.ndarray)}
+    log(f"solver demo (3, 256, 256): degraded {readings['psnr_degraded']:.3f} dB, restored "
+        f"{readings['psnr_restored']:.3f} dB (300 iterations), adaptive "
+        f"{readings['psnr_adaptive']:.3f} dB ({demo['adaptive_iters']} iterations, r "
+        f"{readings['adaptive_r']:.3e} s {readings['adaptive_s']:.3e}, tol 1e-4); {demo_s:.3f} s")
+    require(readings["psnr_restored"] > readings["psnr_degraded"]
+            and readings["psnr_adaptive"] > readings["psnr_degraded"], "solver demo: no PSNR gain")
+    require(readings["adaptive_r"] <= 1e-4, "solver demo: adaptive residual above 1e-4")
+    t0 = time.perf_counter()
+    objs = run_ranks("megapixel_demo", "--size", str(DEMO_SIZE))
+    wall = time.perf_counter() - t0
+    mp = next(o for o in objs if o.get("metric") == "megapixel_demo")
+    log(f"megapixel demo {DEMO_SIZE}^2 fixed on {mp['ranks']} rank(s): {mp['iters']} iterations "
+        f"in {mp['solve_s']:.3f} s (first call), PSNR {mp['psnr_noisy']:.3f} -> "
+        f"{mp['psnr_restored']:.3f} dB; launcher wall {wall:.1f} s. Its --adaptive form runs at "
+        f"{MP_SIZE}^2 in phase 17")
+    require(mp["psnr_restored"] > mp["psnr_noisy"], "megapixel demo: no PSNR gain")
+    return {"solver_demo": dict(readings, seconds=demo_s),
+            "megapixel_demo": dict(mp, launcher_s=wall),
+            "launches": summed_launches(objs)}
+
+
+def classical_scripts_path(dev, ckpt) -> dict:
+    """The seventh main path, phases 19-23: the grid sweep, the single-image
+    anchor, the mixed-precision study, the native loader where it can build,
+    and the examples. Prints each phase's K1-K4 launches and time; returns
+    the phases' numbers and the path's launches (this process and the
+    demo's ranks)."""
+    out = {}
+
+    def phase(number, key, fn, *args):
+        before, t0 = kernel_launches(), time.perf_counter()
+        out[key] = fn(*args)
+        out[key]["phase_s"] = time.perf_counter() - t0
+        out[key]["phase_launches"] = {name: c - before[name]
+                                      for name, c in kernel_launches().items()}
+        log(f"phase {number}: {out[key]['phase_s']:.1f} s, K1-K4 launches "
+            f"{out[key]['phase_launches']}")
+        return out[key]["phase_launches"]
+
+    # phase 19: BASELINE config 3; the FFT loop, as in JAX
+    require(not any(phase(19, "grid_sweep", grid_sweep_phase, dev,
+                          np.random.default_rng(12)).values()),
+            "grid sweep: a kernel launched")
+    # phase 20: the single-image anchor, K2 twice (gated there)
+    n = phase(20, "anchor", anchor_phase, dev, np.random.default_rng(20), ckpt)
+    require(n["admm_tv_vmem"] == 2 and n["admm_tv_adaptive_vmem"] == 0
+            and n["fused_elementwise_step"] == 0 and n["admm_tv_vmem_interleaved"] == 0,
+            f"anchor: launches {n}")
+    # phase 21: the mixed-precision study, K2 and K3
+    n = phase(21, "mixed_precision", mixed_precision_phase, dev)
+    require(n["admm_tv_vmem"] > 0 and n["admm_tv_adaptive_vmem"] > 0
+            and n["fused_elementwise_step"] == 0 and n["admm_tv_vmem_interleaved"] == 0,
+            f"mixed-precision study: launches {n}")
+    # phase 22: the native loader, where libpng and libjpeg let it build
+    missing = native_loader_missing()
+    if missing:
+        log(f"phase 22: not run: this machine lacks {missing}, which the native loader's build "
+            f"(g++ -lpng -ljpeg) needs; the CPU tests hold the loader")
+        out["native_loader"] = {"missing": missing}
+    else:
+        require(not any(phase(22, "native_loader", native_loader_phase, dev,
+                              np.random.default_rng(22)).values()),
+                "loader-fed training: a kernel launched")
+    # phase 23: the examples; the loop in both, as in JAX
+    require(not any(phase(23, "examples", examples_phase, dev).values()),
+            "examples: a kernel launched")
+    ranks = out["examples"].pop("launches")
+    require(not any(ranks.values()), f"megapixel demo: launches on the ranks {ranks}")
+    out["launches"] = summed_launches([{"launches": kernel_launches()}, {"launches": ranks}])
+    log(f"seventh main path (phases 19-23): launches {out['launches']}")
+    return out
 
 
 def main() -> int:
@@ -1886,12 +2293,11 @@ def main() -> int:
     # -- the fourth main path: counts set to 0 just before, read just after --
     for counter in counters.values():
         counter.reset()
+    # phase 11's checkpoint serves phases 12 and 20; removed at exit
+    TEMP_DIRS.append(flagship_train.pop("checkpoint_dir"))
     t_phase = time.perf_counter()
-    try:
-        # phase 12: the eval harness, its model column from phase 11's checkpoint
-        harness = eval_harness(dev, np.random.default_rng(12), flagship_train["best_checkpoint"])
-    finally:
-        shutil.rmtree(flagship_train.pop("checkpoint_dir"), ignore_errors=True)
+    # phase 12: the eval harness, its model column from phase 11's checkpoint
+    harness = eval_harness(dev, np.random.default_rng(12), flagship_train["best_checkpoint"])
     harness["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 12: {harness['phase_s']:.1f} s")
     t_phase = time.perf_counter()
@@ -1952,6 +2358,10 @@ def main() -> int:
                                       for c in megapixel.pop("launches") + [dp.pop("launches")]])
     log(f"sixth main path (phases 17-18): launches summed over the ranks {multi_launches}")
     require(not any(multi_launches.values()), "a kernel launched on the multi-device paths")
+    # -- the seventh main path: counts set to 0 just before, read just after --
+    reset_kernel_launches()
+    scripts = classical_scripts_path(dev, flagship_train["best_checkpoint"])
+    script_launches = scripts.pop("launches")
     # device operations per K2, K3 and K4 solve, last: the timed phases run
     # before any profiler session
     (k2["device_ops_per_solve"], k3["device_ops_per_solve"],
@@ -1962,8 +2372,10 @@ def main() -> int:
     log(json.dumps({"eval_harness": harness, "nafnet": naf, "serving_script": serving}))
     log(json.dumps({"learned_prox": learned, "zoo": zoo}))
     log(json.dumps({"megapixel": megapixel, "dp_training": dp}))
+    log(json.dumps({"classical_scripts": scripts}))
     for entry in (k1, k2, k3, k4):
         entry["launches_multidevice_path"] = multi_launches[entry["name"]]
+        entry["launches_classical_scripts_path"] = script_launches[entry["name"]]
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
@@ -1971,4 +2383,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for d in TEMP_DIRS:
+            shutil.rmtree(d, ignore_errors=True)
+    sys.exit(rc)

@@ -88,8 +88,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port imports with jax, flax and the JAX package
-    blocked; chip_smoke.py imports none of them either."""
+    """Every module of the port imports with jax, flax, the JAX package and
+    the tests (``tests/oracles``) blocked; chip_smoke.py imports none of
+    them either."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
         for p in PACKAGE.rglob("*.py")
@@ -97,7 +98,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     code = (
         "import sys, importlib\n"
-        "for name in ('jax', 'flax', 'torch_admm_deconv_tpu'):\n"
+        "for name in ('jax', 'flax', 'torch_admm_deconv_tpu', 'tests'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
@@ -108,7 +109,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= len(modules)
 
-    banned = {"jax", "flax", "torch_admm_deconv_tpu"}
+    banned = {"jax", "flax", "torch_admm_deconv_tpu", "tests"}
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

@@ -99,3 +99,44 @@ def test_train_dp_two_ranks(tmp_path):
                                                            for k, v in want.items()}
     assert "w" not in got
     assert all(1e-12 <= float(got[k]) <= 5.0 for k in ("lmbda", "rho"))
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["fixed", "adaptive"])
+def test_megapixel_demo_two_ranks(tmp_path, adaptive):
+    """``examples.megapixel_demo --size 128`` (and ``--adaptive``) on 2
+    ranks against JAX ``spatial_admm_tv(_adaptive)`` on a 2-device mesh in
+    this process, on the same seeded checkerboard: the restored image (rank
+    0's ``--save``) within 1e-5, the adaptive iterations within 1, and the
+    printed lines."""
+    import numpy as np
+
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from torch_admm_deconv_tpu.parallel import make_mesh, spatial_admm_tv, spatial_admm_tv_adaptive
+    from torch_admm_deconv_tpu_torch.examples.megapixel_demo import scene
+    from torch_admm_deconv_tpu_torch.metrics.functional import psnr_np as psnr
+
+    args = ["--size", "128", "--save", str(tmp_path / "out.npy")] + (
+        ["--adaptive"] if adaptive else [])
+    lines = _torchrun("torch_admm_deconv_tpu_torch.examples.megapixel_demo", args,
+                      tmp_path).splitlines()
+    got = np.load(tmp_path / "out.npy")
+
+    img, noisy = scene(128)  # examples/megapixel_demo.py:48-53
+    rng = np.random.default_rng(0)
+    want_noisy = np.clip(img + 0.05 * rng.normal(size=img.shape), 0, 1).astype(np.float32)
+    np.testing.assert_array_equal(noisy, want_noisy)
+    mesh = make_mesh((2,), ("space",), devices=jax.devices()[:2])
+    x = jnp.asarray(noisy[None, None], jnp.float32)
+    if adaptive:
+        res = spatial_admm_tv_adaptive(x, 0.05, 1.0, None, maxit=50, tol=1e-4, mesh=mesh)
+        want = np.asarray(res.x)[0, 0]
+        m = re.match(r"adaptive spatial solve: (\d+) iters, r=(\S+), ", lines[1])
+        assert m and abs(int(m[1]) - int(res.iters)) <= 1 and float(m[2]) <= 1e-4
+    else:
+        want = np.asarray(spatial_admm_tv(x, 0.05, 1.0, None, maxit=50, mesh=mesh))[0, 0]
+        assert lines[1].startswith("fixed spatial solve: 50 iters, ")
+    assert lines[0] == "devices: 2 x cpu"
+    assert np.abs(got - want).max() <= 1e-5
+    assert lines[2] == f"PSNR {psnr(noisy, img):.2f} -> {psnr(got, img):.2f} dB on 128x128"
+    assert psnr(got, img) > psnr(noisy, img) + 10.0

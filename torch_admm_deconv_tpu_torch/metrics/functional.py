@@ -20,6 +20,7 @@ from __future__ import annotations
 from contextlib import contextmanager
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -72,6 +73,11 @@ def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
     return 10.0 * torch.log10(data_range**2 / mse(pred, target))
+
+
+def psnr_np(pred: np.ndarray, target: np.ndarray, data_range: float = 1.0) -> float:
+    """:func:`psnr` of two NumPy arrays, in their own precision."""
+    return float(10.0 * np.log10(data_range**2 / np.mean((pred - target) ** 2)))
 
 
 def _gaussian_kernel1d(size: int, sigma: float, like: torch.Tensor) -> torch.Tensor:

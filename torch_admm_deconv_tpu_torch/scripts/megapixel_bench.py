@@ -39,13 +39,6 @@ def scene(rng, size):
     return np.clip(img, 0.0, 1.0).astype(np.float32)
 
 
-def gaussian_psf(size, sigma):
-    ax = np.arange(size) - (size - 1) / 2.0
-    g = np.exp(-(ax**2) / (2.0 * sigma**2))
-    k = np.outer(g, g)
-    return (k / k.sum()).reshape(1, 1, size, size).astype(np.float32)
-
-
 def circ_blur(img, k):
     kh = k.shape[-1]
     kpad = np.zeros(img.shape[-2:], np.float32)
@@ -55,10 +48,6 @@ def circ_blur(img, k):
         np.fft.rfft2(img, axes=(2, 3)) * np.fft.rfft2(kpad, s=img.shape[-2:]),
         s=img.shape[-2:], axes=(2, 3),
     ).astype(np.float32)
-
-
-def psnr(a, b):
-    return float(10 * np.log10(1.0 / np.mean((a - b) ** 2)))
 
 
 def card_name_and_power_limit(dev: torch.device) -> str:
@@ -88,6 +77,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    from torch_admm_deconv_tpu_torch.data.transforms import gaussian_psf_np
+    from torch_admm_deconv_tpu_torch.metrics.functional import psnr_np as psnr
     from torch_admm_deconv_tpu_torch.ops.solver import admm_tv
     from torch_admm_deconv_tpu_torch.parallel import (
         gather_rows,
@@ -106,7 +97,7 @@ def main(argv=None):
         rng = np.random.default_rng(0)
         t0 = time.time()
         clean = scene(rng, args.size)
-        kern = gaussian_psf(9, 1.5)
+        kern = gaussian_psf_np(9, 1.5)[None, None]
         noisy = np.clip(circ_blur(clean, kern) + 0.005 * rng.standard_normal(clean.shape), 0,
                         1).astype(np.float32)
         if rank == 0:
