@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from torch_admm_deconv_tpu_torch._device import resolve_device
+from torch_admm_deconv_tpu_torch.utils import tracing
 
 Array = np.ndarray
 
@@ -97,10 +98,12 @@ def classical_restorer(lmbd: float = 0.05, rho: float = 1.0, maxit: int = 100, i
     k = None if kern is None else torch.as_tensor(np.asarray(kern, np.float32), device=dev)
 
     def apply_fn(batch):
-        with torch.inference_mode():
-            x = torch.as_tensor(np.asarray(batch), device=dev)
+        with tracing.span("request", batch=np.shape(batch)), torch.inference_mode():
+            with tracing.span("entry.to_device"):
+                x = torch.as_tensor(np.asarray(batch), device=dev)
             out = admm_tv(x, lmbd, rho, k, iso=iso, maxit=maxit, use_pallas=use_pallas, device=dev)
-            return out.cpu().numpy()
+            with tracing.span("entry.to_host"):
+                return out.cpu().numpy()
 
     return apply_fn
 
@@ -118,8 +121,13 @@ def model_restorer(state_dict: Mapping[str, torch.Tensor], model=None, *, device
     model.to(dev).eval()
 
     def apply_fn(batch):
-        with torch.inference_mode():
-            return model(torch.as_tensor(np.asarray(batch), device=dev)).cpu().numpy()
+        with tracing.span("request", batch=np.shape(batch)), torch.inference_mode():
+            with tracing.span("entry.to_device"):
+                x = torch.as_tensor(np.asarray(batch), device=dev)
+            with tracing.span("model.forward"):
+                out = model(x)
+            with tracing.span("entry.to_host"):
+                return out.cpu().numpy()
 
     return apply_fn
 

@@ -53,6 +53,7 @@ from torch_admm_deconv_tpu_torch.ops.hartley import (
 )
 from torch_admm_deconv_tpu_torch.ops.prox import _EPS
 from torch_admm_deconv_tpu_torch.ops.solver import AdaptiveResult, _elementwise_step, _htran
+from torch_admm_deconv_tpu_torch.utils import tracing
 
 LAUNCHES = LaunchCounter()  # K2
 INTERLEAVED_LAUNCHES = LaunchCounter()  # K4
@@ -181,62 +182,67 @@ def admm_tv_vmem_interleaved_plain(hty, freq_full, mats, rho, tau, mode, maxit: 
     return _fixed_plain(_xform, hty, freq_full, mats, rho, tau, mode, maxit, fast_iters)
 
 
-def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, stage_ns=None):
-    """K2. ``stage_ns``: None, or a CUDA int64 tensor of 6 zeros to which
-    the solve adds the device nanoseconds of its stages (prologue, 4 product
-    stages, chain) as the grid's first CTA sees them between grid barriers."""
+def _launch(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters):
+    """K2. While the port records (``utils.tracing``), the solve adds the
+    device nanoseconds of its stages (prologue, 4 product stages, chain) to
+    the recorder's stage clock."""
     check_planes("admm_tv_vmem", hty)
     b, c, h, w = hty.shape
     if freq_full.shape != (h, w) or any(m.dtype != torch.float32 for m in mats):
         raise ValueError("admm_tv_vmem: spectrum or matrices do not match the planes")
-    general = len(mats) == 4
-    out, s, ux0, ux1, uy0, uy1, y, a = (torch.empty_like(hty) for _ in range(8))
-    d = torch.empty_like(hty) if general else None
-    lib, fn = _fixed_lib()
-    # the matrices' tf32 halves, split once per solve
-    split = torch.empty(lib.admm_tv_vmem_split_floats(h, w), dtype=torch.float32, device=hty.device)
-    m = list(mats) + [None] * (4 - len(mats))
-    group = c if mode == "sample" else 1
-    with torch.cuda.device(hty.device):
-        stream = torch.cuda.current_stream(hty.device).cuda_stream
-        status = fn(
-            hty.data_ptr(), freq_full.data_ptr(), *(_ptr(t) for t in m), len(mats),
-            rho_tau.data_ptr(), out.data_ptr(), s.data_ptr(), ux0.data_ptr(), ux1.data_ptr(),
-            uy0.data_ptr(), uy1.data_ptr(), y.data_ptr(), a.data_ptr(), _ptr(d), split.data_ptr(),
-            _ptr(stage_ns), b * c, group, h, w, MODES[mode], maxit, fast_iters, stream,
-        )
-    check(status, "admm_tv_vmem_solve")
-    LAUNCHES.add()
+    with tracing.span("solve.launch", kernel="k2"):
+        general = len(mats) == 4
+        out, s, ux0, ux1, uy0, uy1, y, a = (torch.empty_like(hty) for _ in range(8))
+        d = torch.empty_like(hty) if general else None
+        lib, fn = _fixed_lib()
+        # the matrices' tf32 halves, split once per solve
+        split = torch.empty(lib.admm_tv_vmem_split_floats(h, w), dtype=torch.float32,
+                            device=hty.device)
+        m = list(mats) + [None] * (4 - len(mats))
+        group = c if mode == "sample" else 1
+        stage_ns = tracing.launch_clock("k2", hty.device)
+        with torch.cuda.device(hty.device):
+            stream = torch.cuda.current_stream(hty.device).cuda_stream
+            status = fn(
+                hty.data_ptr(), freq_full.data_ptr(), *(_ptr(t) for t in m), len(mats),
+                rho_tau.data_ptr(), out.data_ptr(), s.data_ptr(), ux0.data_ptr(), ux1.data_ptr(),
+                uy0.data_ptr(), uy1.data_ptr(), y.data_ptr(), a.data_ptr(), _ptr(d),
+                split.data_ptr(), _ptr(stage_ns), b * c, group, h, w, MODES[mode], maxit,
+                fast_iters, stream,
+            )
+        check(status, "admm_tv_vmem_solve")
+        LAUNCHES.add()
     return out
 
 
-def _launch_interleaved(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack,
-                        stage_ns=None):
+def _launch_interleaved(hty, freq_full, mats, rho_tau, mode, maxit, fast_iters, pack):
     """K4: one clustered launch per solve. ``pack`` (the TPU kernel's planes
     per grid program) is checked, not used: the kernel's unit is a plane.
-    ``stage_ns``: None, or a CUDA int64 tensor of 6 zeros that receives
-    cluster 0's device nanoseconds by stage (prologue, 4 product stages,
-    chain), summed over its planes and iterations."""
+    While the port records (``utils.tracing``), cluster 0 adds its device
+    nanoseconds by stage (prologue, 4 product stages, chain), summed over
+    its planes and iterations, to the recorder's stage clock."""
     check_planes("admm_tv_vmem", hty)
     b, c, h, w = hty.shape
     if freq_full.shape != (h, w) or any(m.dtype != torch.float32 for m in mats):
         raise ValueError("admm_tv_vmem: spectrum or matrices do not match the planes")
-    lib = _interleaved_lib()
-    n_planes = b * c
-    floats = lib.admm_tv_vmem_interleaved_workspace(n_planes, h, w, MODES[mode])
-    check(0 if floats >= 0 else 1, "admm_tv_vmem_interleaved_workspace")
-    out = torch.empty_like(hty)
-    work = torch.empty(floats, dtype=torch.float32, device=hty.device)
-    m = list(mats) + [None] * (4 - len(mats))
-    with torch.cuda.device(hty.device):
-        stream = torch.cuda.current_stream(hty.device).cuda_stream
-        status = lib.admm_tv_vmem_interleaved(
-            hty.data_ptr(), freq_full.data_ptr(), *(_ptr(t) for t in m), len(mats),
-            rho_tau.data_ptr(), out.data_ptr(), work.data_ptr(), _ptr(stage_ns), n_planes, pack,
-            h, w, MODES[mode], maxit, fast_iters, stream,
-        )
-    check(status, "admm_tv_vmem_interleaved")
-    INTERLEAVED_LAUNCHES.add()
+    with tracing.span("solve.launch", kernel="k4"):
+        lib = _interleaved_lib()
+        n_planes = b * c
+        floats = lib.admm_tv_vmem_interleaved_workspace(n_planes, h, w, MODES[mode])
+        check(0 if floats >= 0 else 1, "admm_tv_vmem_interleaved_workspace")
+        out = torch.empty_like(hty)
+        work = torch.empty(floats, dtype=torch.float32, device=hty.device)
+        m = list(mats) + [None] * (4 - len(mats))
+        stage_ns = tracing.launch_clock("k4", hty.device)
+        with torch.cuda.device(hty.device):
+            stream = torch.cuda.current_stream(hty.device).cuda_stream
+            status = lib.admm_tv_vmem_interleaved(
+                hty.data_ptr(), freq_full.data_ptr(), *(_ptr(t) for t in m), len(mats),
+                rho_tau.data_ptr(), out.data_ptr(), work.data_ptr(), _ptr(stage_ns), n_planes,
+                pack, h, w, MODES[mode], maxit, fast_iters, stream,
+            )
+        check(status, "admm_tv_vmem_interleaved")
+        INTERLEAVED_LAUNCHES.add()
     return out
 
 
@@ -287,18 +293,19 @@ def _transform_mats(h: int, w: int, kern, device):
 def solve_inputs(xin: torch.Tensor, lmbd, rho, kern: Optional[torch.Tensor]):
     """(hty, freq_full, rho, tau, mats): everything the solve reads, built
     outside the kernel as the JAX wrapper builds it (vmem_solver.py:984-1005)."""
-    b, c, h, w = xin.shape
-    dtype = xin.dtype
-    rho = torch.as_tensor(rho, dtype=dtype, device=xin.device).reshape(())
-    lmbd = torch.as_tensor(lmbd, dtype=dtype, device=xin.device).reshape(())
-    # tau >= 0: the clip form of soft shrinkage needs it
-    tau = torch.clamp_min(lmbd / rho, 0.0)
-    # the inverse transform's 1/(H*W) is folded into the diagonal spectrum
-    freq_c = fdops.freq_denominator((h, w), rho, kern, dtype, xin.device) * (1.0 / (h * w))
-    freq_full = mirror_freq_full_joint(freq_c.expand(h, w // 2 + 1), w)
-    mats = _transform_mats(h, w, kern, xin.device)
-    hty = _htran(xin, kern, (h, w), dtype)
-    return hty, freq_full, rho, tau, mats
+    with tracing.span("solve.inputs"):
+        b, c, h, w = xin.shape
+        dtype = xin.dtype
+        rho = torch.as_tensor(rho, dtype=dtype, device=xin.device).reshape(())
+        lmbd = torch.as_tensor(lmbd, dtype=dtype, device=xin.device).reshape(())
+        # tau >= 0: the clip form of soft shrinkage needs it
+        tau = torch.clamp_min(lmbd / rho, 0.0)
+        # the inverse transform's 1/(H*W) is folded into the diagonal spectrum
+        freq_c = fdops.freq_denominator((h, w), rho, kern, dtype, xin.device) * (1.0 / (h * w))
+        freq_full = mirror_freq_full_joint(freq_c.expand(h, w // 2 + 1), w)
+        mats = _transform_mats(h, w, kern, xin.device)
+        hty = _htran(xin, kern, (h, w), dtype)
+        return hty, freq_full, rho, tau, mats
 
 
 def admm_tv_vmem(
@@ -320,21 +327,24 @@ def admm_tv_vmem(
     vmem_solver.py:918-955). ``schedule``: 'batched' (K2) or 'interleaved'
     (K4, aniso and 'joint'; 'sample' runs K2, as in JAX). ``device``:
     ``None`` means CUDA; the CPU (the plain versions) only when named."""
-    if schedule not in SCHEDULES:
-        raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
-    dev = resolve_device(device)
-    xin = torch.as_tensor(xin, device=dev)
-    kern = None if kern is None else torch.as_tensor(kern, device=dev)
-    if xin.dim() != 4:
-        raise ValueError(f"admm_tv_vmem expects (B, C, H, W), got {tuple(xin.shape)}")
-    mode = iso_mode if iso else None
-    if mode not in MODES:
-        raise ValueError(f"whole solve supports aniso, 'sample' and 'joint', got {iso_mode!r}")
-    fast_iters = fast_iterations(precision, fast_frac, maxit)
-    hty, freq_full, rho, tau, mats = solve_inputs(xin, lmbd, rho, kern)
-    interleaved = schedule == "interleaved" and mode in (None, "joint")
-    pack = _fixed_pack(xin.shape, iso, iso_mode) if interleaved else None
-    return _WholeSolve.apply(hty, freq_full, rho, tau, mode, maxit, fast_iters, pack, *mats)
+    path = "k4" if schedule == "interleaved" and (not iso or iso_mode == "joint") else "k2"
+    with tracing.span("solve", path=path, shape=np.shape(xin), maxit=maxit, precision=precision):
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+        dev = resolve_device(device)
+        xin = torch.as_tensor(xin, device=dev)
+        kern = None if kern is None else torch.as_tensor(kern, device=dev)
+        if xin.dim() != 4:
+            raise ValueError(f"admm_tv_vmem expects (B, C, H, W), got {tuple(xin.shape)}")
+        mode = iso_mode if iso else None
+        if mode not in MODES:
+            raise ValueError(
+                f"whole solve supports aniso, 'sample' and 'joint', got {iso_mode!r}")
+        fast_iters = fast_iterations(precision, fast_frac, maxit)
+        hty, freq_full, rho, tau, mats = solve_inputs(xin, lmbd, rho, kern)
+        interleaved = schedule == "interleaved" and mode in (None, "joint")
+        pack = _fixed_pack(xin.shape, iso, iso_mode) if interleaved else None
+        return _WholeSolve.apply(hty, freq_full, rho, tau, mode, maxit, fast_iters, pack, *mats)
 
 
 # --- K3: the residual-stopped solve -----------------------------------------
@@ -387,22 +397,23 @@ def adaptive_inputs(xin: torch.Tensor, lmbd, rho, kern: Optional[torch.Tensor], 
     (:816-839): hty in blocks (n_blocks, g, H, W); |H|^2 and |D|^2 on the
     full grid by the conjugate mirror, pre-scaled by H*W so the rebuilt
     spectrum 1/(habs2 + rho d2) carries the inverse transform's 1/(H*W)."""
-    b, c, h, w = xin.shape
-    dtype, dev = xin.dtype, xin.device
-    lmbd = torch.as_tensor(lmbd, dtype=dtype, device=dev).reshape(())
-    rho = torch.as_tensor(rho, dtype=dtype, device=dev).reshape(())
-    d2 = fdops.grad_otf_abs2((h, w), dtype, dev)
-    if kern is None or kern.numel() == 0:
-        habs2 = torch.ones((h, w // 2 + 1), dtype=dtype, device=dev)
-    else:
-        otf = fdops.psf_otf(kern.to(dtype), (h, w))
-        habs2 = (otf.real**2 + otf.imag**2).reshape(h, w // 2 + 1)
-    hw = float(h * w)
-    habs2_full = mirror_freq_full_joint(habs2, w) * hw
-    d2_full = mirror_freq_full_joint(d2.expand(h, w // 2 + 1), w) * hw
-    mats = _transform_mats(h, w, kern, dev)
-    hty = _htran(xin, kern, (h, w), dtype).reshape(b * c // g, g, h, w)
-    return hty, habs2_full, d2_full, torch.stack([lmbd, rho]), mats
+    with tracing.span("solve.inputs"):
+        b, c, h, w = xin.shape
+        dtype, dev = xin.dtype, xin.device
+        lmbd = torch.as_tensor(lmbd, dtype=dtype, device=dev).reshape(())
+        rho = torch.as_tensor(rho, dtype=dtype, device=dev).reshape(())
+        d2 = fdops.grad_otf_abs2((h, w), dtype, dev)
+        if kern is None or kern.numel() == 0:
+            habs2 = torch.ones((h, w // 2 + 1), dtype=dtype, device=dev)
+        else:
+            otf = fdops.psf_otf(kern.to(dtype), (h, w))
+            habs2 = (otf.real**2 + otf.imag**2).reshape(h, w // 2 + 1)
+        hw = float(h * w)
+        habs2_full = mirror_freq_full_joint(habs2, w) * hw
+        d2_full = mirror_freq_full_joint(d2.expand(h, w // 2 + 1), w) * hw
+        mats = _transform_mats(h, w, kern, dev)
+        hty = _htran(xin, kern, (h, w), dtype).reshape(b * c // g, g, h, w)
+        return hty, habs2_full, d2_full, torch.stack([lmbd, rho]), mats
 
 
 def _schedule(k, r, sd, fast, cfg: AdaptiveConfig):
@@ -506,37 +517,39 @@ def admm_tv_adaptive_vmem_plain(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveCo
     return x, zx, zy, ux, uy, k, r, sd, rho
 
 
-def _launch_adaptive(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig, stage_ns=None):
-    """K3. ``stage_ns``: None, or a CUDA int64 tensor of 8 zeros to which
-    the solve adds the device nanoseconds of its stages (prologue, 4 product
-    stages, residual, finalize, right-hand side) as the grid's first CTA
-    sees them between grid barriers."""
+def _launch_adaptive(hty, habs2, d2, mats, lmbd_rho0, cfg: AdaptiveConfig):
+    """K3. While the port records (``utils.tracing``), the solve adds the
+    device nanoseconds of its stages (prologue, 4 product stages, residual,
+    finalize, right-hand side) to the recorder's stage clock."""
     check_planes("admm_tv_adaptive_vmem", hty)
     nb, g, h, w = hty.shape
     n_planes = nb * g
     if habs2.shape != (h, w) or d2.shape != (h, w) or any(m.dtype != torch.float32 for m in mats):
         raise ValueError("admm_tv_adaptive_vmem: spectra or matrices do not match the planes")
-    lib = _adaptive_lib()
-    dev = hty.device
-    x, zx, zy, ux, uy = (torch.empty_like(hty) for _ in range(5))
-    work = torch.empty(lib.admm_tv_adaptive_workspace(n_planes, h, w), dtype=torch.float32, device=dev)
-    state = torch.empty(2 * nb * 8, dtype=torch.int32, device=dev)  # 2 x n_blocks BlockStates
-    iters = torch.empty(nb, dtype=torch.int32, device=dev)
-    stats = torch.empty(3, nb, dtype=torch.float32, device=dev)
-    m = list(mats) + [None] * (4 - len(mats))
-    scale = float(np.sqrt(np.float32(2 * g * h * w)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.admm_tv_adaptive_solve(
-            hty.data_ptr(), habs2.data_ptr(), d2.data_ptr(), *(_ptr(t) for t in m), len(mats),
-            lmbd_rho0.data_ptr(), x.data_ptr(), zx.data_ptr(), zy.data_ptr(), ux.data_ptr(),
-            uy.data_ptr(), work.data_ptr(), state.data_ptr(), iters.data_ptr(), stats.data_ptr(),
-            _ptr(stage_ns), n_planes, g, h, w, MODES[cfg.mode], cfg.maxit, cfg.tol, int(cfg.adapt),
-            cfg.rho_mu, cfg.rho_scale, int(cfg.use_fast),
-            cfg.fast_switch, cfg.fast_cap, scale, stream,
-        )
-    check(status, "admm_tv_adaptive_solve")
-    ADAPTIVE_LAUNCHES.add()
+    with tracing.span("solve.launch", kernel="k3"):
+        lib = _adaptive_lib()
+        dev = hty.device
+        x, zx, zy, ux, uy = (torch.empty_like(hty) for _ in range(5))
+        work = torch.empty(lib.admm_tv_adaptive_workspace(n_planes, h, w), dtype=torch.float32,
+                           device=dev)
+        state = torch.empty(2 * nb * 8, dtype=torch.int32, device=dev)  # 2 x n_blocks BlockStates
+        iters = torch.empty(nb, dtype=torch.int32, device=dev)
+        stats = torch.empty(3, nb, dtype=torch.float32, device=dev)
+        m = list(mats) + [None] * (4 - len(mats))
+        scale = float(np.sqrt(np.float32(2 * g * h * w)))
+        stage_ns = tracing.launch_clock("k3", dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = lib.admm_tv_adaptive_solve(
+                hty.data_ptr(), habs2.data_ptr(), d2.data_ptr(), *(_ptr(t) for t in m), len(mats),
+                lmbd_rho0.data_ptr(), x.data_ptr(), zx.data_ptr(), zy.data_ptr(), ux.data_ptr(),
+                uy.data_ptr(), work.data_ptr(), state.data_ptr(), iters.data_ptr(),
+                stats.data_ptr(), _ptr(stage_ns), n_planes, g, h, w, MODES[cfg.mode], cfg.maxit,
+                cfg.tol, int(cfg.adapt), cfg.rho_mu, cfg.rho_scale, int(cfg.use_fast),
+                cfg.fast_switch, cfg.fast_cap, scale, stream,
+            )
+        check(status, "admm_tv_adaptive_solve")
+        ADAPTIVE_LAUNCHES.add()
     return (x, zx, zy, ux, uy, iters, *stats.unbind(0))
 
 
@@ -586,18 +599,20 @@ def admm_tv_adaptive_vmem(
     ``return_state`` ``(AdaptiveResult, (x, z_x, z_y, u_x, u_y))``, the
     ADMM state at exit. ``device``: ``None`` means CUDA; the CPU (the plain
     version) only when named."""
-    dev = resolve_device(device)
-    xin = torch.as_tensor(xin, device=dev)
-    kern = None if kern is None else torch.as_tensor(kern, device=dev)
-    if xin.dim() != 4:
-        raise ValueError(f"admm_tv_adaptive_vmem expects (B, C, H, W), got {tuple(xin.shape)}")
-    cfg = adaptive_config(xin.shape, iso, iso_mode, maxit, tol, rho_mu, rho_scale, precision,
-                          fast_switch, return_state)
-    hty, habs2, d2, lmbd_rho0, mats = adaptive_inputs(xin, lmbd, rho, kern, cfg.g)
-    x, zx, zy, ux, uy, iters, r, sd, rho_f = _AdaptiveSolve.apply(hty, habs2, d2, lmbd_rho0, cfg,
-                                                                  *mats)
-    shape = xin.shape
-    result = AdaptiveResult(x=x.reshape(shape), iters=iters, r_norm=r, s_norm=sd, rho=rho_f)
-    if return_state:
-        return result, tuple(t.reshape(shape) for t in (x, zx, zy, ux, uy))
-    return result
+    with tracing.span("solve", path="k3", shape=np.shape(xin), maxit=maxit, precision=precision):
+        dev = resolve_device(device)
+        xin = torch.as_tensor(xin, device=dev)
+        kern = None if kern is None else torch.as_tensor(kern, device=dev)
+        if xin.dim() != 4:
+            raise ValueError(
+                f"admm_tv_adaptive_vmem expects (B, C, H, W), got {tuple(xin.shape)}")
+        cfg = adaptive_config(xin.shape, iso, iso_mode, maxit, tol, rho_mu, rho_scale, precision,
+                              fast_switch, return_state)
+        hty, habs2, d2, lmbd_rho0, mats = adaptive_inputs(xin, lmbd, rho, kern, cfg.g)
+        x, zx, zy, ux, uy, iters, r, sd, rho_f = _AdaptiveSolve.apply(hty, habs2, d2, lmbd_rho0,
+                                                                      cfg, *mats)
+        shape = xin.shape
+        result = AdaptiveResult(x=x.reshape(shape), iters=iters, r_norm=r, s_norm=sd, rho=rho_f)
+        if return_state:
+            return result, tuple(t.reshape(shape) for t in (x, zx, zy, ux, uy))
+        return result

@@ -22,6 +22,7 @@ from torch_admm_deconv_tpu_torch._device import resolve_device
 from torch_admm_deconv_tpu_torch.models.layers_common import identity, xavier_uniform_conv
 from torch_admm_deconv_tpu_torch.ops.implicit import admm_tv_implicit
 from torch_admm_deconv_tpu_torch.ops.solver import admm_tv
+from torch_admm_deconv_tpu_torch.utils import tracing
 
 GRADIENT_MODES = ("unroll", "implicit")
 
@@ -56,20 +57,21 @@ class ADMMDeconv(nn.Module):
         self.b = uniform01() if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lmbd = self.lmbda.reshape(()) if self.lmbda is not None else self.lmbda_value
-        rho = self.rho.reshape(()) if self.rho is not None else self.rho_value
-        if self.gradient_mode == "implicit":
-            out = admm_tv_implicit(
-                x, lmbd, rho, self.w, iso=self.iso, maxit=self.max_iters,
-                tol=self.implicit_tol, iso_mode=self.iso_mode,
-                backward_iters=self.implicit_backward_iters, device=x.device,
-            )
-        else:
-            out = admm_tv(
-                x, lmbd, rho, self.w, iso=self.iso, maxit=self.max_iters,
-                iso_mode=self.iso_mode, remat=self.remat, use_pallas=self.use_pallas,
-                device=x.device,
-            )
-        if self.b is not None:
-            out = out + self.b[0]
-        return self.activation(out)
+        with tracing.span("model.admm"):
+            lmbd = self.lmbda.reshape(()) if self.lmbda is not None else self.lmbda_value
+            rho = self.rho.reshape(()) if self.rho is not None else self.rho_value
+            if self.gradient_mode == "implicit":
+                out = admm_tv_implicit(
+                    x, lmbd, rho, self.w, iso=self.iso, maxit=self.max_iters,
+                    tol=self.implicit_tol, iso_mode=self.iso_mode,
+                    backward_iters=self.implicit_backward_iters, device=x.device,
+                )
+            else:
+                out = admm_tv(
+                    x, lmbd, rho, self.w, iso=self.iso, maxit=self.max_iters,
+                    iso_mode=self.iso_mode, remat=self.remat, use_pallas=self.use_pallas,
+                    device=x.device,
+                )
+            if self.b is not None:
+                out = out + self.b[0]
+            return self.activation(out)

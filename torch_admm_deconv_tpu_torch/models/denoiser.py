@@ -17,6 +17,7 @@ from torch import nn
 from torch_admm_deconv_tpu_torch._device import resolve_device
 from torch_admm_deconv_tpu_torch.models.attention import ChannelWiseAttention
 from torch_admm_deconv_tpu_torch.models.blocks import DivergentAttention, _maybe_checkpoint
+from torch_admm_deconv_tpu_torch.utils import tracing
 
 # the reference's two ADMM front-end configs (JAX denoiser.py:28-29)
 DECONV1 = {"kern_size": (), "max_iters": 100, "iso": True}
@@ -60,13 +61,15 @@ class DivergentRestorer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = self.n
-        out = self.sca_0(self._block(0, x))
+        with tracing.span("model.level", level=0):
+            out = self.sca_0(self._block(0, x))
         for i in range(1, n):
             sca = getattr(self, f"sca_{i}")
-            if i < n - 1:
-                out = sca(self._block(i, torch.cat([out, x], dim=1)))
-            else:
-                out = self._block(i, torch.cat([sca(out), x], dim=1))
+            with tracing.span("model.level", level=i):
+                if i < n - 1:
+                    out = sca(self._block(i, torch.cat([out, x], dim=1)))
+                else:
+                    out = self._block(i, torch.cat([sca(out), x], dim=1))
         return out
 
 

@@ -33,6 +33,7 @@ from torch_admm_deconv_tpu_torch.ops.prox import (
     block_thresh_joint,
     soft_thresh,
 )
+from torch_admm_deconv_tpu_torch.utils import tracing
 
 FFT_IMPLS = ("auto", "xla", "dht", "mxu")
 
@@ -152,12 +153,10 @@ def admm_tv(
     xin = torch.as_tensor(xin, device=dev)
     kern = None if kern is None else torch.as_tensor(kern, device=dev)
     group = resolve_group(psum_axis) if iso and iso_mode == "compat" else None
-    if group is not None:
-        # the global batch is not this rank's: no batch-1 'sample' solve
-        return _admm_tv_scan(xin, lmbd, rho, kern, iso=iso, maxit=maxit, iso_mode=iso_mode,
-                             remat=remat, group=group)
-    eff_mode = whole_solve_mode(xin.shape, xin.dtype, kern, iso, iso_mode, use_pallas, remat)
-    if eff_mode is not None:
+    # a split global batch is not this rank's: no batch-1 'sample' solve
+    eff_mode = None if group is not None else whole_solve_mode(
+        xin.shape, xin.dtype, kern, iso, iso_mode, use_pallas, remat)
+    if eff_mode is not None:  # the whole solve records its own span
         from torch_admm_deconv_tpu_torch.kernels.vmem_solver import admm_tv_vmem
 
         shape = (1,) * (4 - xin.ndim) + tuple(xin.shape)
@@ -166,10 +165,11 @@ def admm_tv(
             precision=precision, fast_frac=fast_frac, device=dev,
         )
         return out.reshape(xin.shape)
-    return _admm_tv_scan(
-        xin, lmbd, rho, kern, iso=iso, maxit=maxit, iso_mode=iso_mode,
-        remat=remat, use_pallas=use_pallas,
-    )
+    with tracing.span("solve", path="loop", shape=xin.shape, maxit=maxit, precision=precision):
+        return _admm_tv_scan(
+            xin, lmbd, rho, kern, iso=iso, maxit=maxit, iso_mode=iso_mode,
+            remat=remat, use_pallas=use_pallas, group=group,
+        )
 
 
 def whole_solve_mode(shape, dtype, kern, iso: bool, iso_mode: str = "compat",
@@ -301,11 +301,12 @@ def admm_tv_adaptive(
     xin = torch.as_tensor(xin, device=dev)
     kern = None if kern is None else torch.as_tensor(kern, device=dev)
     squeeze = 4 - xin.ndim
-    xin = xin.reshape((1,) * squeeze + tuple(xin.shape))
-    k, (x, *_), r, s, rho_f = _adaptive_loop(
-        xin, _as_scalar(lmbd, xin), _as_scalar(rho, xin), kern, iso, maxit, tol, iso_mode,
-        adapt_rho, rho_mu, rho_scale, group=resolve_group(psum_axis),
-    )
+    with tracing.span("solve", path="loop", shape=xin.shape, maxit=maxit):
+        xin = xin.reshape((1,) * squeeze + tuple(xin.shape))
+        k, (x, *_), r, s, rho_f = _adaptive_loop(
+            xin, _as_scalar(lmbd, xin), _as_scalar(rho, xin), kern, iso, maxit, tol, iso_mode,
+            adapt_rho, rho_mu, rho_scale, group=resolve_group(psum_axis),
+        )
     return AdaptiveResult(
         x=x.reshape(x.shape[squeeze:]), iters=torch.tensor(k, dtype=torch.int32, device=dev),
         r_norm=r, s_norm=s, rho=rho_f,

@@ -19,12 +19,11 @@ Inputs are synthetic piecewise-constant images plus Gaussian noise
 the wall time by CUDA events, the summed device time of its kernels and the
 busy share (summed kernel time over the wall time; one stream), and the
 device time and launch count by kernel. K2, K3 and K4 are one persistent
-launch each, which the profiler sees as one kernel, so a further call
-reads the kernel's own stage clock (the ``stage_ns`` buffer of
-``vmem_solver._launch``, ``_launch_adaptive`` and ``_launch_interleaved``):
-device time by stage, summed over the iterations, as the grid's first CTA
-sees it between grid barriers (K4: between its cluster's barriers). Fails
-without a GPU.
+launch each, which the profiler sees as one kernel, so a further call,
+with the port's recorder on (``utils.tracing``), reads the kernel's own
+stage clock: device time by stage, summed over the iterations, as the
+grid's first CTA sees it between grid barriers (K4: between its cluster's
+barriers). Fails without a GPU.
 """
 
 from __future__ import annotations
@@ -35,13 +34,7 @@ import sys
 import numpy as np
 import torch
 
-STAGES = {
-    "K2": ("prologue", "product_1", "product_2", "product_3", "product_4", "chain"),
-    "K4": ("prologue", "product_1", "product_2", "product_3", "product_4", "chain"),
-    "K3": ("prologue", "product_1", "product_2", "product_3", "product_4", "residual",
-           "finalize", "rhs"),
-}
-
+from torch_admm_deconv_tpu_torch.utils import tracing
 
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -66,34 +59,32 @@ def noisy_images(rng: np.random.Generator, b: int, c: int, h: int, w: int) -> np
 
 def adaptive_solve(x, lmbd, rho, iso, iso_mode, maxit, tol, rho_mu):
     """A K3 solve in 'high' as ``admm_tv_adaptive_vmem`` runs it: a function
-    of the stage clock buffer returning the blocks' iteration counts."""
+    returning the blocks' iteration counts."""
     from torch_admm_deconv_tpu_torch.kernels import vmem_solver
 
     cfg = vmem_solver.adaptive_config(x.shape, iso, iso_mode, maxit, tol, rho_mu, 2.0, "high",
                                       None, False)
     hty, habs2, d2, lr, mats = vmem_solver.adaptive_inputs(x, lmbd, rho, None, cfg.g)
-    return lambda stage_ns=None: vmem_solver._launch_adaptive(
-        hty, habs2, d2, mats, lr, cfg, stage_ns=stage_ns)[5]
+    return lambda: vmem_solver._launch_adaptive(hty, habs2, d2, mats, lr, cfg)[5]
 
 
 def fixed_solve(x, lmbd, rho, iso_mode, maxit, interleaved=False):
     """A K2 (or K4) solve in 'high' as ``admm_tv_vmem`` runs it, as a
-    function of the stage clock buffer."""
+    function."""
     from torch_admm_deconv_tpu_torch.kernels import vmem_solver
 
     hty, freq, rho_t, tau_t, mats = vmem_solver.solve_inputs(x, lmbd, rho, None)
     rho_tau = torch.stack([rho_t, tau_t]).contiguous()
     if interleaved:
         pack = vmem_solver._fixed_pack(x.shape, iso_mode is not None, iso_mode or "joint")
-        return lambda stage_ns=None: vmem_solver._launch_interleaved(
-            hty, freq, mats, rho_tau, iso_mode, maxit, 0, pack, stage_ns=stage_ns)
-    return lambda stage_ns=None: vmem_solver._launch(
-        hty, freq, mats, rho_tau, iso_mode, maxit, 0, stage_ns=stage_ns)
+        return lambda: vmem_solver._launch_interleaved(hty, freq, mats, rho_tau, iso_mode,
+                                                       maxit, 0, pack)
+    return lambda: vmem_solver._launch(hty, freq, mats, rho_tau, iso_mode, maxit, 0)
 
 
 def trace(name: str, kind: str, fn) -> dict:
     """Profile one call of ``fn`` after a warm-up call, then read the stage
-    clock of one more."""
+    clock of one more through the recorder."""
     result = fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -122,10 +113,10 @@ def trace(name: str, kind: str, fn) -> dict:
     }
     if kind == "K3":
         out["iterations_needed"] = int(result.max())
-    stage_ns = torch.zeros(8, dtype=torch.int64, device="cuda")
-    fn(stage_ns)
-    ns = stage_ns.tolist()
-    out["stage_clock_ms"] = {stage: ns[i] / 1e6 for i, stage in enumerate(STAGES[kind])}
+    with tracing.recording():
+        fn()
+    (clock,) = [c for c in tracing.drain()["counters"] if c["kernel"] == kind.lower()]
+    out["stage_clock_ms"] = {stage: ns / 1e6 for stage, ns in clock["stage_ns"].items()}
     return out
 
 

@@ -50,20 +50,32 @@ def _fetch(v):
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """A ``torch.profiler`` scope over the CPU and, when there is one, the
-    GPU; yields the profiler (``key_averages()`` for sums by kernel) and
-    writes a Chrome trace to ``log_dir/trace.json`` when it is given."""
+    GPU, with the port's span recorder (``utils.tracing``) on; yields the
+    profiler (``key_averages()`` for sums by kernel). Given ``log_dir``, it
+    writes the Chrome trace to ``log_dir/trace.json`` and beside it the
+    recorded spans and stage clocks to ``spans.json``: ``tracing.drain()``'s
+    dict, its times in Unix nanoseconds, plus ``profile_start_ns``, the
+    profile's start on the same clock (an event's ``time_range`` is in
+    microseconds after it)."""
+    import json
+    from pathlib import Path
+
     from torch.profiler import ProfilerActivity, profile
+
+    from torch_admm_deconv_tpu_torch.utils import tracing
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        yield prof
+        with tracing.recording():
+            yield prof
+    recorded = tracing.drain()
     if log_dir is not None:
-        from pathlib import Path
-
         Path(log_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+        recorded["profile_start_ns"] = prof.profiler.kineto_results.trace_start_ns()
+        (Path(log_dir) / "spans.json").write_text(json.dumps(recorded))
 
 
 def timed_fetch(fn: Callable, *args, reps: int = 3) -> float:
