@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``torch_admm_deconv_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, and drives seven
+holds each against its plain PyTorch version on the card (the spatial gates'
+channel pool in phase 3b), and drives seven
 main paths, each with the launch counts set to 0 just before and read just
 after: (1) the flagship DivergentRestorer forward at full width, classical
 tiled TV-ADMM serving and the solver loop with the fused step (phases 4-6);
@@ -1998,6 +1999,43 @@ def classical_scripts_path(dev, ckpt) -> dict:
     return out
 
 
+def channel_pool_phase(dev) -> dict:
+    """The spatial gates' channel pool (``csrc/channel_pool.cu``) against its
+    plain version (the sort path), exactly, at the flagship's gate shape and
+    at ragged shapes on both of the kernel's paths (registers to 128
+    channels, shared memory above); its time at the flagship's gate beside
+    its bound, the plain version's and ``torch.mode``'s (a yardstick the
+    port never calls)."""
+    from torch_admm_deconv_tpu_torch.kernels import channel_pool
+    from torch_admm_deconv_tpu_torch.models.attention import channel_pool as pool
+    from torch_admm_deconv_tpu_torch.models.attention import channel_pool_plain
+
+    gen = torch.Generator().manual_seed(3)
+    for shape in ((1, 86, 256, 256), (2, 1, 33, 47), (2, 86, 33, 47), (2, 129, 33, 47),
+                  (2, 256, 33, 47)):
+        for kind in ("random", "five levels"):
+            x = (torch.randn(shape, generator=gen) if kind == "random"
+                 else torch.randint(0, 5, shape, generator=gen).float()).to(dev)
+            got, want = pool(x), channel_pool_plain(x)
+            nan = got.isnan()  # the std of one channel
+            require(torch.equal(nan, want.isnan()) and torch.equal(got[~nan], want[~nan]),
+                    f"channel pool {kind} {shape} differs from the plain version")
+    x = torch.randn((1, 86, 256, 256), generator=gen).to(dev)
+    nbytes = (x.numel() + 2 * x[:, 0].numel()) * 4
+    entry = {"name": "channel_pool", "route": "cuda",
+             "source": "torch_admm_deconv_tpu_torch/csrc/channel_pool.cu", "replaces": None,
+             "max_abs_err": 0.0, "ms": graph_ms(lambda: channel_pool.median_mode(x), 100),
+             "pool_ms": graph_ms(lambda: pool(x), 100),
+             "plain_ms": graph_ms(lambda: channel_pool_plain(x), 20),
+             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+             "library_ms": graph_ms(lambda: torch.mode(x, dim=1), 20)}
+    log(f"channel pool (1, 86, 256, 256): kernel {entry['ms'] * 1e3:.2f} us (CUDA graph), with std and "
+        f"stack {entry['pool_ms'] * 1e3:.2f} us, plain {entry['plain_ms'] * 1e3:.2f} us, bound "
+        f"{entry['bound_ms'] * 1e3:.2f} us (bytes); torch.mode {entry['library_ms'] * 1e3:.2f} us; "
+        f"equal to the plain version at 5 shapes x 2 kinds")
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2005,7 +2043,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
         return worker(sys.argv[2], sys.argv[3:])
 
-    from torch_admm_deconv_tpu_torch.kernels import fused_admm, vmem_solver
+    from torch_admm_deconv_tpu_torch.kernels import channel_pool, fused_admm, vmem_solver
     from torch_admm_deconv_tpu_torch.kernels._build import LIBRARIES, ptxas_kernels
     from torch_admm_deconv_tpu_torch.infer import classical_restorer, restore_image
     from torch_admm_deconv_tpu_torch.models.denoiser import flagship_divergent_restorer
@@ -2029,6 +2067,7 @@ def main() -> int:
     LIBRARIES.load("vmem_solver")
     LIBRARIES.load("vmem_adaptive")
     LIBRARIES.load("vmem_interleaved")
+    LIBRARIES.load("channel_pool")
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {LIBRARIES.build_seconds} s)")
     if LIBRARIES.ptxas_log:
         kernels = ptxas_kernels(LIBRARIES.ptxas_log)
@@ -2157,9 +2196,13 @@ def main() -> int:
     log(f"K2 flagship (1, 3, 256, 256) sample x100: {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms, f32 SIMT bound {simt_ms:.4f} ms")
 
+    # -- phase 3b: the spatial gates' channel pool against its plain version --
+    pool = channel_pool_phase(dev)
+
     # -- the main path: counts set to 0 just before, read just after ----------
     fused_admm.LAUNCHES.reset()
     vmem_solver.LAUNCHES.reset()
+    channel_pool.LAUNCHES.reset()
 
     # phase 4: flagship forward at full width, batch 1, AWGN sigma=15 tile
     gen = torch.Generator().manual_seed(0)
@@ -2179,15 +2222,18 @@ def main() -> int:
         out = model(xt)
         torch.cuda.synchronize()
         require(vmem_solver.LAUNCHES.n - before == 2, "flagship forward must launch K2 twice")
+        require(channel_pool.LAUNCHES.n == 42, "flagship forward must launch the channel pool 42 times")
         for _ in range(5):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            before = vmem_solver.LAUNCHES.n
+            before, pools = vmem_solver.LAUNCHES.n, channel_pool.LAUNCHES.n
             start.record()
             model(xt)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
             require(vmem_solver.LAUNCHES.n - before == 2, "flagship forward must launch K2 twice")
+            require(channel_pool.LAUNCHES.n - pools == 42,
+                    "flagship forward must launch the channel pool 42 times")
         ref = scan_model(xt)
     torch.cuda.synchronize()
     require(out.shape == (1, 3, 256, 256) and torch.isfinite(out).all(), "flagship output malformed")
@@ -2202,7 +2248,7 @@ def main() -> int:
     diff = (out - ref).abs()
     flag_err, flag_med = float(diff.max()), float(diff.median())
     log(f"flagship forward (1, 3, 256, 256): median {statistics.median(times):.3f} ms over {len(times)} "
-        f"(CUDA events), K2 launches/forward 2; ADMM layers max|kernel - loop| {admm_err:.3e} (tol 1e-4); "
+        f"(CUDA events), K2 launches/forward 2, channel pool 42; ADMM layers max|kernel - loop| {admm_err:.3e} (tol 1e-4); "
         f"output max {flag_err:.3e} (tol 2e-2), median {flag_med:.3e} (tol 1e-3)")
     require(admm_err <= 1e-4, f"flagship ADMM layers disagree with the loop path: {admm_err}")
     require(flag_err <= 2e-2 and flag_med <= 1e-3,
@@ -2235,8 +2281,9 @@ def main() -> int:
         f"max|K1 loop - plain loop| {loop_err:.3e} (tol 1e-4)")
     require(loop_err <= 1e-4, f"K1 loop disagrees: {loop_err}")
 
-    launches = {"fused_elementwise_step": fused_admm.LAUNCHES.n, "admm_tv_vmem": vmem_solver.LAUNCHES.n}
-    for entry in (k1, k2):
+    launches = {"fused_elementwise_step": fused_admm.LAUNCHES.n, "admm_tv_vmem": vmem_solver.LAUNCHES.n,
+                "channel_pool": channel_pool.LAUNCHES.n}
+    for entry in (k1, k2, pool):
         entry["launches"] = launches[entry["name"]]
         require(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
     log(json.dumps({"k2_ms_by_case": extra_ms, "flagship_forward_ms": times,
@@ -2277,7 +2324,8 @@ def main() -> int:
     # -- the third main path: counts set to 0 just before, read just after ---
     counters = {"fused_elementwise_step": fused_admm.LAUNCHES, "admm_tv_vmem": vmem_solver.LAUNCHES,
                 "admm_tv_vmem_interleaved": vmem_solver.INTERLEAVED_LAUNCHES,
-                "admm_tv_adaptive_vmem": vmem_solver.ADAPTIVE_LAUNCHES}
+                "admm_tv_adaptive_vmem": vmem_solver.ADAPTIVE_LAUNCHES,
+                "channel_pool": channel_pool.LAUNCHES}
     for counter in counters.values():
         counter.reset()
     # phase 11: flagship training, and its best checkpoint served through K2
@@ -2289,6 +2337,9 @@ def main() -> int:
     k2["launches_training_path"] = counters["admm_tv_vmem"].n
     require(k2["launches_training_path"] == 2,
             f"{k2['name']} was not launched twice on the training path")
+    # the training steps' gates go through the pool's autograd path
+    pool["launches_training_path"] = counters["channel_pool"].n
+    require(pool["launches_training_path"] > 0, "the channel pool was not launched on the training path")
 
     # -- the fourth main path: counts set to 0 just before, read just after --
     for counter in counters.values():
@@ -2376,7 +2427,7 @@ def main() -> int:
     for entry in (k1, k2, k3, k4):
         entry["launches_multidevice_path"] = multi_launches[entry["name"]]
         entry["launches_classical_scripts_path"] = script_launches[entry["name"]]
-    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, pool]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

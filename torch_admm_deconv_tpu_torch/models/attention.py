@@ -3,7 +3,9 @@
 Counterpart of torch_admm_deconv_tpu/models/attention.py. Median and mode
 are sort-based as there: the median is the lower middle element and the
 mode is the most frequent value with ties broken toward the smallest, taken
-from the same ascending sort (JAX attention.py:59-89, 229-244).
+from the same ascending sort (JAX attention.py:59-89, 229-244). The spatial
+gates' per-pixel pool takes them from one hand-written CUDA pass on the card
+(``kernels/channel_pool.py``), with the sort's results bit for bit.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from torch_admm_deconv_tpu_torch.kernels import channel_pool as channel_pool_kernel
 from torch_admm_deconv_tpu_torch.models.layers_common import Conv2d, InstanceNorm2d, Linear, gelu
 
 # channel statistics (JAX attention.py:34-90): each maps (B, C, H, W) -> (B, C)
@@ -174,13 +177,24 @@ class BasicConv(nn.Module):
         return gelu(y) if self.use_activation else y
 
 
-def channel_pool(x: torch.Tensor) -> torch.Tensor:
+def channel_pool_plain(x: torch.Tensor) -> torch.Tensor:
     """Per-pixel std / median / mode across channels, median and mode from
-    one sort (JAX attention.py:229-244)."""
+    one stable sort (JAX attention.py:229-244)."""
     b, c, h, w = x.shape
-    s = torch.sort(torch.movedim(x, 1, -1).reshape(-1, c), dim=-1).values
+    s = torch.sort(torch.movedim(x, 1, -1).reshape(-1, c), dim=-1, stable=True).values
     med = s[:, (c - 1) // 2].reshape(b, h, w)
     mode = mode_from_sorted(s).reshape(b, h, w)
+    std = x.std(dim=1, unbiased=True)
+    return torch.stack([std, med, mode], dim=1)
+
+
+def channel_pool(x: torch.Tensor) -> torch.Tensor:
+    """:func:`channel_pool_plain`'s result. A CUDA tensor takes the median
+    and mode from the hand-written kernel (1 to 256 channels; more raise),
+    a CPU tensor runs the plain version."""
+    if not x.is_cuda:
+        return channel_pool_plain(x)
+    med, mode = channel_pool_kernel.median_mode(x)
     std = x.std(dim=1, unbiased=True)
     return torch.stack([std, med, mode], dim=1)
 

@@ -11,10 +11,11 @@ under remat) on a (3, 3, 256, 256) batch, one warm-up step, then one step
 under the profiler in four stages, each ending in a synchronize: forward,
 loss (``SSIMLabColorLoss``), backward, and the update (gradient clip, AdamW,
 clamp). Prints one JSON line: the wall time by CUDA events, the summed
-device time of the kernels by group (the port's ADMM kernels, FFTs,
-convolutions, sorts, other), the device busy share (summed kernel time over
-the wall time; one stream, so kernels do not overlap), the longest kernels
-and, with ``--train``, the same per stage. Fails without a GPU.
+device time of the kernels by group (the port's ADMM kernels, the gates'
+channel pool, FFTs, convolutions, sorts, other), the device busy share
+(summed kernel time over the wall time; one stream, so kernels do not
+overlap), the longest kernels and, with ``--train``, the same per stage.
+Fails without a GPU.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 GROUPS = (
     ("admm_kernels", re.compile(r"k2_persistent|k3_persistent")),
+    ("channel_pool", re.compile(r"channel_pool")),
     ("fft", re.compile(r"fft", re.I)),
     ("convolution", re.compile(r"conv|cudnn|xmma|implicit|winograd|fprop|wgrad|dgrad", re.I)),
     ("sort", re.compile(r"sort|radix", re.I)),

@@ -34,6 +34,9 @@ sees them between grid barriers (K4: cluster 0's). The buffers are zeroed
 when recording starts, so the device sums over every launch; ``drain()``
 reads each once, with the launches recorded per kernel.
 
+A kernel without a stage clock (the spatial gates' ``channel_pool``) only
+counts its launches; ``drain()`` gives it an empty ``stage_ns``.
+
 Off, a span site costs one check of a module flag (and the keyword
 arguments of a site that passes attributes): ``span`` returns one shared
 object that does nothing. On, a span costs two ``perf_counter_ns`` reads
@@ -181,6 +184,14 @@ def launch_clock(kernel: str, device: torch.device):
         return _buffer(kernel, device)
 
 
+def count_launch(kernel: str, device: torch.device) -> None:
+    """Count one launch of a kernel that keeps no stage clock; nothing
+    while recording is off."""
+    if _on:
+        with _lock:
+            _launches[(kernel, device)] += 1
+
+
 def _plain(v):
     if isinstance(v, (bool, int, float, str)) or v is None:
         return v
@@ -193,16 +204,17 @@ def drain() -> dict:
     """Everything recorded since recording started, then forgotten:
     'spans' (dicts of name, start_ns, end_ns on the Unix clock, id, parent,
     request, attrs), 'counters' (per kernel and device with launches: the
-    launches and the stage clock's nanoseconds by stage), 'dropped' (spans
-    past ``LIMIT``)."""
+    launches and the stage clock's nanoseconds by stage, empty for a kernel
+    without one), 'dropped' (spans past ``LIMIT``)."""
     global _dropped
     spans = [{"name": name, "start_ns": start + _offset_ns, "end_ns": end + _offset_ns, "id": sid,
               "parent": parent, "request": request,
               "attrs": {k: _plain(v) for k, v in attrs.items()}}
              for name, start, end, sid, parent, request, attrs in _records]
-    counters = [{"kernel": kernel, "device": str(dev), "launches": _launches[(kernel, dev)],
-                 "stage_ns": dict(zip(STAGES[kernel], buf.tolist()))}
-                for (kernel, dev), buf in _buffers.items() if _launches[(kernel, dev)]]
+    counters = [{"kernel": kernel, "device": str(dev), "launches": n,
+                 "stage_ns": (dict(zip(STAGES[kernel], _buffers[(kernel, dev)].tolist()))
+                              if (kernel, dev) in _buffers else {})}
+                for (kernel, dev), n in _launches.items() if n]
     out = {"clock": "unix_ns", "spans": spans, "counters": counters, "dropped": _dropped}
     _records.clear()
     _buffers.clear()
